@@ -1,0 +1,13 @@
+"""yi-9b [dense]: llama-arch GQA. [arXiv:2403.04652; hf]"""
+from repro_torch.models.config import ArchConfig, Family
+
+ARCH = ArchConfig(
+    name="yi-9b",
+    family=Family.DENSE,
+    n_layers=48,
+    d_model=4096,
+    n_heads=32,
+    n_kv_heads=4,
+    d_ff=11008,
+    vocab=64000,
+)

@@ -1,0 +1,38 @@
+"""Model-layout wrappers of the port's kernels.
+
+A CUDA tensor goes to the hand-written kernel, which launches or raises; a
+CPU tensor goes to the kernel's plain PyTorch version.  There is no other
+route: nothing here falls back from the kernel to the plain version.
+``LAUNCHES`` counts kernel launches, one per launch and nowhere else.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from .flash_attention import flash_attention_cuda, flash_attention_plain
+
+LAUNCHES: Dict[str, int] = {"flash_attention": 0}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def flash_attention(
+    q: torch.Tensor,      # (B, Sq, H, hd)
+    k: torch.Tensor,      # (B, Sk, KV, hd)
+    v: torch.Tensor,      # (B, Sk, KV, hd)
+    *,
+    causal: bool = True,
+) -> torch.Tensor:
+    """Flash attention in the model layout; returns (B, Sq, H, hd)."""
+    if q.is_cuda:
+        out = flash_attention_cuda(q, k, v, causal=causal)
+        LAUNCHES["flash_attention"] += 1
+        return out
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal)
+    raise ValueError(f"flash_attention runs on CUDA or CPU tensors, not {q.device}")

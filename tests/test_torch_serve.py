@@ -1,0 +1,134 @@
+"""The port's continuous-batching engine and ``serve_batch`` against the JAX
+package's, on the dense cases of tests/test_serve_engine.py: the same
+weights (carried across with ``params_from_numpy``) and prompts, float32 on
+the CPU.  Greedy tokens must be equal and the engine counters equal.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs.registry import ARCHS as JAX_ARCHS
+from repro.launch.serve import serve_batch as jax_serve_batch
+from repro.models.schema import build_schema as jax_build_schema
+from repro.models.sharding import init_from_schema as jax_init
+from repro.models.testing import reduced as jax_reduced
+from repro.serve import Request as JaxRequest
+from repro.serve import ServeEngine as JaxEngine
+from repro_torch.configs.registry import ARCHS
+from repro_torch.launch.serve import serve_batch
+from repro_torch.models.config import CellTuning
+from repro_torch.models.convert import params_from_numpy
+from repro_torch.models.testing import reduced
+from repro_torch.serve import Request, ServeEngine
+
+COUNTERS = ("admitted", "finished", "ticks", "decoded_tokens")
+
+
+@pytest.fixture(scope="module")
+def dense_setup():
+    jcfg = jax_reduced(JAX_ARCHS["qwen2-1.5b"])
+    jparams = jax_init(jax.random.PRNGKey(0), jax_build_schema(jcfg), jnp.float32)
+    cfg = reduced(ARCHS["qwen2-1.5b"])
+    params = params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu")
+    return cfg, params, jcfg, jparams
+
+
+def _run(engine_cls, request_cls, cfg, params, prompts, max_new, *, slots,
+         max_len, eos=None, ticks_before=None, **kw):
+    """Serve ``prompts`` on one engine; requests after the first wait for
+    ``ticks_before`` ticks when given (staggered admission)."""
+    engine = engine_cls(cfg, params, slots=slots, max_len=max_len, **kw)
+    reqs = [request_cls(i, p, max_new_tokens=n, eos_token=eos)
+            for i, (p, n) in enumerate(zip(prompts, max_new))]
+    if ticks_before is None:
+        for r in reqs:
+            engine.submit(r)
+    else:
+        engine.submit(reqs[0])
+        for _ in range(ticks_before):
+            engine.tick()
+        for r in reqs[1:]:
+            engine.submit(r)
+    stats = engine.run_until_drained()
+    return [r.generated for r in reqs], tuple(getattr(stats, c) for c in COUNTERS)
+
+
+def _both(setup, prompts, max_new, **kw):
+    cfg, params, jcfg, jparams = setup
+    ours = _run(ServeEngine, Request, cfg, params, prompts, max_new,
+                device="cpu", **kw)
+    ref = _run(JaxEngine, JaxRequest, jcfg, jparams, prompts, max_new, **kw)
+    return ours, ref
+
+
+def _prompts(seed, sizes, vocab):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, vocab, size=s).astype(np.int32) for s in sizes]
+
+
+def test_engine_matches_jax_lockstep(dense_setup):
+    cfg = dense_setup[0]
+    prompts = _prompts(0, [12, 12, 12], cfg.vocab)
+    (toks, stats), (jtoks, jstats) = _both(dense_setup, prompts, [6] * 3,
+                                           slots=2, max_len=48)
+    assert toks == jtoks and stats == jstats
+    assert stats[1] == 3
+
+
+def test_engine_matches_jax_staggered_admission(dense_setup):
+    cfg = dense_setup[0]
+    prompts = _prompts(1, [16, 8], cfg.vocab)
+    (toks, stats), (jtoks, jstats) = _both(dense_setup, prompts, [8, 4],
+                                           slots=2, max_len=48, ticks_before=3)
+    assert toks == jtoks and stats == jstats
+
+
+def test_engine_matches_jax_slot_reuse(dense_setup):
+    cfg = dense_setup[0]
+    prompts = _prompts(2, [10] * 5, cfg.vocab)
+    (toks, stats), (jtoks, jstats) = _both(dense_setup, prompts, [3] * 5,
+                                           slots=2, max_len=32)
+    assert toks == jtoks and stats == jstats
+    assert stats == (5, 5, stats[2], 15) and stats[2] <= 12
+
+
+def test_engine_matches_jax_eos_frees_slot(dense_setup):
+    cfg, params, jcfg, jparams = dense_setup
+    (p,) = _prompts(3, [10], cfg.vocab)
+    ref = list(np.asarray(jax_serve_batch(jcfg, jparams, jnp.asarray(p[None]), 8)[0, 10:]))
+    eos = int(ref[2])   # EOS at the 3rd generated token
+    (toks, stats), (jtoks, jstats) = _both(dense_setup, [p], [8], slots=1,
+                                           max_len=32, eos=eos)
+    assert toks == jtoks == [ref[:3]] and stats == jstats
+
+
+def test_engine_kernel_and_torch_impls_agree(dense_setup):
+    """attention_impl "kernel" (the plain version on the CPU) and "torch"
+    give the same greedy tokens."""
+    cfg, params = dense_setup[:2]
+    prompts = _prompts(4, [9, 14], cfg.vocab)
+    outs = [_run(ServeEngine, Request, cfg, params, prompts, [5, 5], slots=2,
+                 max_len=32, device="cpu",
+                 tuning=CellTuning(compute_dtype="float32", attention_impl=impl))
+            for impl in ("kernel", "torch")]
+    assert outs[0] == outs[1]
+
+
+def test_serve_batch_matches_jax(dense_setup):
+    cfg, params, jcfg, jparams = dense_setup
+    prompts = np.stack(_prompts(5, [11, 11, 11], cfg.vocab))
+    ours = serve_batch(cfg, params, prompts, 7, device="cpu")
+    ref = jax_serve_batch(jcfg, jparams, jnp.asarray(prompts), 7)
+    np.testing.assert_array_equal(ours.numpy(), np.asarray(ref))
+
+
+def test_engine_prefill_counts_tokens(dense_setup):
+    cfg, params = dense_setup[:2]
+    engine = ServeEngine(cfg, params, slots=2, max_len=32, device="cpu")
+    for i, p in enumerate(_prompts(6, [7, 5, 9], cfg.vocab)):
+        engine.submit(Request(i, p, max_new_tokens=2))
+    stats = engine.run_until_drained()
+    assert stats.prefill_tokens == 21 and stats.prefill_s > 0 and stats.decode_s > 0
+    assert engine.cache["k"].dtype == torch.float32
