@@ -9,17 +9,27 @@ Phases, each printing one JSON line:
   2. build   — nvcc builds every kernel under src/repro_torch/kernels/csrc,
                one process per source, all started together.
   3. kernel  — flash attention against its plain PyTorch version on the card
-               at the serving shapes and the repo's test shapes, with its
-               time, the plain version's, SDPA's (a yardstick only) and the
-               least time the card could take (bound_ms).
-  4. serve   — qwen2-1.5b at full width in bf16, seeded random weights,
-               ServeEngine(slots=4, max_len=1088): 8 requests of 1024 prompt
-               tokens and 32 new tokens each.  Launch counts are zeroed just
-               before and read just after; the flash kernel must run once per
-               layer per admitted request.
-  5. parity  — the same model in float32, 2 requests of 512 tokens and 8 new
-               tokens, with attention_impl "kernel" and "torch": equal greedy
-               tokens, prefill logits within 1e-3.
+               at the serving shapes (qwen2-1.5b and zamba2-1.2b's shared
+               block) and the repo's test shapes, with its time, the plain
+               version's, SDPA's (a yardstick only) and the least time the
+               card could take (bound_ms).
+  4. ssd     — the SSD scan kernel against its plain version at zamba2's
+               prefill shape, ragged, and the repo's test shapes, in float32
+               and bfloat16, with its time, the plain version's and its
+               bound (no single PyTorch call computes it: library_ms null);
+               in float32 both also stand beside the step recurrence
+               (ref.ssd_ref) as a second witness.
+  5. serve   — per model (qwen2-1.5b, then zamba2-1.2b) at full width and
+               depth in bf16, seeded random weights, ServeEngine(slots=4,
+               max_len=1088): 8 requests of 1024 prompt tokens and 32 new
+               tokens each.  Launch counts are zeroed just before and read
+               just after; each kernel of the model's path must run exactly
+               once per layer (flash: per attention layer or shared-block
+               application; ssd: per mamba2 layer) per admitted request.
+  6. parity  — the same model in float32, 2 requests (512 and 512 tokens
+               for qwen2, 512 and 500 for zamba2), 8 new tokens, with the
+               kernels and with the plain torch paths: equal greedy tokens,
+               prefill logits within 1e-3.
 
 Then one line {"kernels": [...]}, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Any failed check raises, so the script exits
@@ -51,10 +61,21 @@ FLASH = {
     "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
     "replaces": "src/repro/kernels/flash_attention.py:129",
 }
-# the shape list of tests/test_kernels.py: (B, S, H, KV, hd)
+SSD = {
+    "name": "ssd_scan",
+    "route": "cuda",
+    "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+    "replaces": "src/repro/kernels/ssd_scan.py:122",
+}
+# the shape lists of tests/test_kernels.py: (B, S, H, KV, hd) and
+# (B, S, nh, hp, n, chunk)
 ATTN_SHAPES = [(1, 128, 4, 4, 32), (2, 256, 8, 2, 64), (1, 192, 6, 1, 16),
                (2, 64, 4, 4, 128), (1, 512, 2, 2, 8)]
+SSD_SHAPES = [(1, 64, 2, 16, 8, 32), (2, 128, 4, 32, 16, 64),
+              (1, 200, 4, 16, 8, 64), (2, 96, 1, 64, 32, 32),
+              (1, 256, 8, 8, 4, 256)]
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+SSD_TOL = {"float32": 5e-4, "bfloat16": 5e-2}
 
 
 def emit(phase: str, **fields) -> None:
@@ -101,6 +122,41 @@ def attention_bound_ms(B, Sq, Sk, H, KV, hd, causal, dtype, peaks) -> tuple:
     return (1e3 * max(t_ops, t_mem), "operations" if t_ops >= t_mem else "bytes")
 
 
+def ssd_chunked_flops(B, S, nh, hp, n, chunk) -> float:
+    """FLOPs of the chunked SSD algorithm with nothing computed twice: per
+    chunk of Qv steps, C.B^T over its Qv(Qv+1)/2 causal pairs (n each) once
+    per batch, as every head shares B and C; per head, the weighted product
+    over those pairs (hp each), C.h_prev and the state update (Qv hp n
+    each)."""
+    Q = min(chunk, S)
+    macs = 0
+    for c0 in range(0, S, Q):
+        qv = min(Q, S - c0)
+        pairs = qv * (qv + 1) // 2
+        macs += pairs * n + nh * (pairs * hp + 2 * qv * hp * n)
+    return 2.0 * B * macs
+
+
+def ssd_bound_ms(B, S, nh, hp, n, dtype, peaks) -> tuple:
+    """(ms, "bytes"|"operations", flops, bytes) for one SSD scan: the larger
+    of the bytes each input read once and y, h written once (float32) over
+    the memory rate, and the operations over the float32 rate (the function
+    computes in float32 whatever its input type).  The operations are those
+    of the step recurrence h = a h + dt x B^T, y = C.h: two multiply-adds
+    per (step, head, p, n), the fewest of any known algorithm (the chunked
+    form, ``ssd_chunked_flops``, adds its causal products to them)."""
+    import torch
+
+    _, f32_rate, mem_rate = peaks
+    es = 2 if dtype == torch.bfloat16 else 4
+    flops = 4.0 * B * S * nh * hp * n
+    nbytes = es * B * S * (nh * hp + nh + 2 * n) + 4 * nh \
+        + 4 * B * S * nh * hp + 4 * B * nh * hp * n
+    t_ops, t_mem = flops / f32_rate, nbytes / mem_rate
+    return (1e3 * max(t_ops, t_mem), "operations" if t_ops >= t_mem else "bytes",
+            flops, nbytes)
+
+
 def phase_device():
     import torch
 
@@ -127,7 +183,7 @@ def phase_build():
     emit("build", seconds=time.perf_counter() - t0, per_source=per_source)
 
 
-def phase_kernel(peaks) -> dict:
+def phase_kernel(peaks) -> tuple:
     import torch
 
     from repro_torch.kernels.flash_attention import (
@@ -141,6 +197,8 @@ def phase_kernel(peaks) -> dict:
     for S in (1024, 1000):                    # the serving slice, and ragged
         for dt in ("bfloat16", "float32"):
             cases.append(((1, S, S, 12, 2, 128), True, dt, 1.0, "slice"))
+    # zamba2-1.2b's shared attention block
+    cases.append(((1, 1024, 1024, 32, 32, 64), True, "bfloat16", 1.0, "zamba2"))
     for (B, S, H, KV, hd) in ATTN_SHAPES:
         for dt in ("float32", "bfloat16"):
             for causal in (True, False):
@@ -149,7 +207,7 @@ def phase_kernel(peaks) -> dict:
     cases.append(((2, 64, 128, 4, 4, 32), False, "float32", 1.0, "cross"))
     cases.append(((1, 128, 128, 2, 2, 32), True, "float32", 8.0, "logits~40"))
 
-    main_entry = None
+    main_entry = zamba_entry = None
     for (B, Sq, Sk, H, KV, hd), causal, dt, scale, what in cases:
         dtype = getattr(torch, dt)
         q = (scale * torch.randn(B, Sq, H, hd, generator=gen, device=dev)).to(dtype)
@@ -165,7 +223,7 @@ def phase_kernel(peaks) -> dict:
             bool(torch.isfinite(out).all())
         row = dict(shape=[B, Sq, Sk, H, KV, hd], causal=causal, dtype=dt,
                    case=what, max_abs_err=err, tol=tol, ok=ok)
-        if what == "slice":
+        if what in ("slice", "zamba2"):
             row["ms"] = cuda_ms(lambda: flash_attention_cuda(q, k, v, causal=causal))
             row["plain_ms"] = cuda_ms(lambda: flash_attention_plain(q, k, v, causal=causal))
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -174,11 +232,84 @@ def phase_kernel(peaks) -> dict:
                     qt, kt, vt, is_causal=causal, enable_gqa=True))
             row["bound_ms"], row["bound_by"] = attention_bound_ms(
                 B, Sq, Sk, H, KV, hd, causal, dtype, peaks)
-            if Sq == 1024 and dt == "bfloat16":
+            if what == "zamba2":
+                zamba_entry = row
+            elif Sq == 1024 and dt == "bfloat16":
                 main_entry = row
         emit("kernel", **row)
         if not ok:
             raise RuntimeError(f"flash_attention disagrees with its plain version: {row}")
+    return main_entry, zamba_entry
+
+
+def phase_ssd(peaks) -> dict:
+    import math
+
+    import torch
+
+    from repro_torch.kernels.ref import ssd_ref
+    from repro_torch.kernels.ssd_scan import ssd_scan_cuda, ssd_scan_plain
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    cases = []
+    for S in (1024, 1000):                    # zamba2's prefill, and ragged
+        for dt in ("float32", "bfloat16"):
+            cases.append(((1, S, 64, 64, 64, 256), dt, "slice"))
+    for shape in SSD_SHAPES:
+        for dt in ("float32", "bfloat16"):
+            cases.append((shape, dt, "tests"))
+
+    main_entry = None
+    for (B, S, nh, hp, n, chunk), dt, what in cases:
+        dtype = getattr(torch, dt)
+        x = torch.randn(B, S, nh, hp, generator=gen, device=dev)
+        Bc = torch.randn(B, S, n, generator=gen, device=dev)
+        Cc = torch.randn(B, S, n, generator=gen, device=dev)
+        if what == "slice":
+            # the model's ranges: softplus(dt_bias) in [1e-3, 1e-1] and
+            # A = -exp(A_log) = -(1..nh), so dt*A reaches about -6 a step
+            lo, hi = math.log(1e-3), math.log(1e-1)
+            dts = torch.exp(lo + (hi - lo) * torch.rand(B, S, nh, generator=gen, device=dev))
+            A = -torch.arange(1, nh + 1, dtype=torch.float32, device=dev)
+        else:                                 # the inputs of tests/test_kernels.py
+            dts = torch.nn.functional.softplus(
+                torch.randn(B, S, nh, generator=gen, device=dev))
+            A = -torch.exp(torch.randn(nh, generator=gen, device=dev))
+        x, dts, Bc, Cc = (t.to(dtype) for t in (x, dts, Bc, Cc))
+        y, h = ssd_scan_cuda(x, dts, A, Bc, Cc, chunk=chunk)
+        torch.cuda.synchronize()
+        yr, hr = ssd_scan_plain(x, dts, A, Bc, Cc, chunk=chunk)
+        tol = SSD_TOL[dt]
+        err, ok = 0.0, True
+        for out, ref in ((y, yr), (h, hr)):
+            diff = (out - ref).abs()
+            err = max(err, float(diff.max()))
+            ok = ok and bool((diff <= tol + tol * ref.abs()).all()) \
+                and bool(torch.isfinite(out).all())
+        row = dict(shape=[B, S, nh, hp, n, chunk], dtype=dt, case=what,
+                   max_abs_err=err, tol=tol, ok=ok)
+        if dt == "float32":
+            # a second witness, not a check: the step recurrence takes no
+            # cumulative sum, so where kernel and plain version share one's
+            # float32 cancellation both stand apart from it alike
+            yo, ho = ssd_ref(x, dts, A, Bc, Cc)
+            for key, (yy, hh) in (("kernel_vs_oracle", (y, h)),
+                                  ("plain_vs_oracle", (yr, hr))):
+                row[key] = max(float((yy - yo).abs().max()),
+                               float((hh - ho).abs().max()))
+        if what == "slice":
+            row["ms"] = cuda_ms(lambda: ssd_scan_cuda(x, dts, A, Bc, Cc, chunk=chunk))
+            row["plain_ms"] = cuda_ms(lambda: ssd_scan_plain(x, dts, A, Bc, Cc, chunk=chunk))
+            row["library_ms"] = None      # no single PyTorch call computes it
+            row["bound_ms"], row["bound_by"], row["bound_flops"], row["bound_bytes"] = \
+                ssd_bound_ms(B, S, nh, hp, n, dtype, peaks)
+            row["chunked_flops"] = ssd_chunked_flops(B, S, nh, hp, n, chunk)
+            if S == 1024 and dt == "float32":  # what the model path passes
+                main_entry = row
+        emit("ssd", **row)
+        if not ok:
+            raise RuntimeError(f"ssd_scan disagrees with its plain version: {row}")
     return main_entry
 
 
@@ -186,38 +317,58 @@ def _prompts(rng, n, length, vocab):
     return [rng.integers(0, vocab, size=length).astype("int64") for _ in range(n)]
 
 
+def _rescale_attention(attn) -> None:
+    """Scale one attention block's projections, stacked (L, ...) or not, from
+    the reference init's 1/sqrt(shape[-2]) to 1/sqrt(contracted width)."""
+    import math
+
+    d, H, hd = attn["wq"].shape[-3:]
+    KV = attn["wk"].shape[-2]
+    attn["wq"].mul_(math.sqrt(H / d))
+    attn["wk"].mul_(math.sqrt(KV / d))
+    attn["wv"].mul_(math.sqrt(KV / d))
+    attn["wo"].mul_(math.sqrt(hd / (H * hd)))
+
+
 def _weights(cfg):
     """Seeded random float32 weights on the card, attention well conditioned.
 
     ``init_from_schema`` follows the JAX package and scales each weight by
     1/sqrt(shape[-2]).  For the head-structured projections that is the
-    head count (wq: 12, wk/wv: 2) or the head dim (wo: 128), not the
-    contracted width, so at full width the q.k logits reach the hundreds,
-    the softmax is saturated, and two summation orders of the same model
-    part within a few layers: without the rescale the parity phase below
-    fails (prefill logits 3.7 apart, different tokens) while the kernel
-    agrees with its plain version.  Rescaling those four projections to
-    their contracted width keeps the parity phase a test of the kernel.
+    head count (qwen2 wq: 12, wk/wv: 2; zamba2's shared block: 32) or the
+    head dim (wo: 128; zamba2: 64), not the contracted width, so at full
+    width the q.k logits reach the hundreds, the softmax is saturated, and
+    two summation orders of the same model part within a few layers:
+    without the rescale the qwen2 parity phase fails (prefill logits 3.7
+    apart, different tokens) while the kernel agrees with its plain
+    version.  Rescaling the projections of every attention block (the
+    stacked layers' and zamba2's shared one) to their contracted width
+    keeps the parity phase a test of the kernels.
     """
-    import math
-
     import torch
 
     from repro_torch.models.schema import build_schema
     from repro_torch.models.sharding import init_from_schema
 
     params = init_from_schema(0, build_schema(cfg), torch.float32, "cuda")
-    attn = params["layers"]["attn"]
-    _, d, H, hd = attn["wq"].shape
-    KV = attn["wk"].shape[2]
-    attn["wq"].mul_(math.sqrt(H / d))
-    attn["wk"].mul_(math.sqrt(KV / d))
-    attn["wv"].mul_(math.sqrt(KV / d))
-    attn["wo"].mul_(math.sqrt(hd / (H * hd)))
+    for group in ("layers", "shared"):
+        if "attn" in params.get(group, {}):
+            _rescale_attention(params[group]["attn"])
     return params
 
 
-def phase_serve(cfg) -> int:
+def _expected_launches(cfg, n_req: int) -> dict:
+    """Launches of each kernel for ``n_req`` admitted requests: one per
+    attention layer (or shared-block application) and per mamba2 layer."""
+    from repro_torch.models.config import Family
+
+    if cfg.family == Family.HYBRID:
+        return {"flash_attention": n_req * (cfg.n_layers // cfg.shared_attn_period),
+                "ssd_scan": n_req * cfg.n_layers}
+    return {"flash_attention": n_req * cfg.n_layers, "ssd_scan": 0}
+
+
+def phase_serve(cfg) -> dict:
     import numpy as np
     import torch
 
@@ -247,20 +398,21 @@ def phase_serve(cfg) -> int:
     stats = engine.run_until_drained()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = LAUNCHES["flash_attention"]
+    launches = dict(LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
+    expected = _expected_launches(cfg, n_req)
 
     toks = [t for r in reqs for t in r.generated]
     checks = {
         "all_finished": stats.finished == n_req and all(r.done for r in reqs),
         "all_lengths": all(len(r.generated) == new_tokens for r in reqs),
         "tokens_in_vocab": all(0 <= t < cfg.vocab for t in toks),
-        "flash_launches": launches == n_req * cfg.n_layers,
+        "launches": launches == expected,
     }
     decode_ticks = stats.ticks
     emit("serve", arch=cfg.name, dtype="bfloat16", requests=n_req,
          prompt_len=prompt_len, new_tokens=new_tokens, slots=4, max_len=1088,
-         flash_launches=launches, expected_launches=n_req * cfg.n_layers,
+         launches=launches, expected_launches=expected,
          ticks=stats.ticks, decoded_tokens=stats.decoded_tokens,
          prefill_s=stats.prefill_s, decode_s=stats.decode_s, wall_s=wall,
          prefill_tok_s=stats.prefill_tokens / stats.prefill_s,
@@ -273,7 +425,7 @@ def phase_serve(cfg) -> int:
     return launches
 
 
-def phase_parity(cfg) -> None:
+def phase_parity(cfg, prompt_lens) -> None:
     import numpy as np
     import torch
 
@@ -283,18 +435,19 @@ def phase_parity(cfg) -> None:
     from repro_torch.train.steps import make_prefill_step
 
     params32 = _weights(cfg)
-    prompts = _prompts(np.random.default_rng(2), 2, 512, cfg.vocab)
+    rng = np.random.default_rng(2)
+    prompts = [_prompts(rng, 1, n, cfg.vocab)[0] for n in prompt_lens]
     tokens, logits = {}, {}
     for impl in ("kernel", "torch"):
-        engine = ServeEngine(cfg, params32, slots=2, max_len=520,
+        engine = ServeEngine(cfg, params32, slots=2, max_len=max(prompt_lens) + 8,
                              tuning=CellTuning(compute_dtype="float32",
-                                               attention_impl=impl))
+                                               attention_impl=impl, ssm_impl=impl))
         reqs = [Request(i, p, max_new_tokens=8) for i, p in enumerate(prompts)]
         for r in reqs:
             engine.submit(r)
         engine.run_until_drained()
         tokens[impl] = [r.generated for r in reqs]
-        step = make_prefill_step(cfg, ShardCtx(impl))
+        step = make_prefill_step(cfg, ShardCtx(impl, impl))
         logits[impl] = torch.stack([
             step(engine.params, {"tokens": torch.as_tensor(p[None], device="cuda")})[0][0]
             for p in prompts])
@@ -303,7 +456,8 @@ def phase_parity(cfg) -> None:
     checks = {"tokens_equal": tokens["kernel"] == tokens["torch"],
               "logits_within_1e-3": err <= 1e-3,
               "logits_finite": bool(torch.isfinite(logits["kernel"]).all())}
-    emit("parity", arch=cfg.name, dtype="float32", requests=2, prompt_len=512,
+    emit("parity", arch=cfg.name, dtype="float32", requests=2,
+         prompt_lens=list(prompt_lens),
          new_tokens=8, prefill_logits_max_abs_err=err, tol=1e-3,
          tokens=tokens["kernel"], checks=checks)
     if not all(checks.values()):
@@ -325,18 +479,33 @@ def main() -> int:
 
     smi, name, peaks = phase_device()
     phase_build()
-    flash = phase_kernel(peaks)
+    flash, flash_zamba = phase_kernel(peaks)
+    ssd = phase_ssd(peaks)
 
-    cfg = get_arch("qwen2-1.5b")
-    launches = phase_serve(cfg)
-    torch.cuda.empty_cache()
-    phase_parity(cfg)
+    launches = {}
+    for arch, prompt_lens in (("qwen2-1.5b", (512, 512)),
+                              ("zamba2-1.2b", (512, 500))):
+        cfg = get_arch(arch)
+        launches[arch] = phase_serve(cfg)
+        torch.cuda.empty_cache()
+        phase_parity(cfg, prompt_lens)
+        torch.cuda.empty_cache()
 
-    entry = dict(FLASH, launches=launches, max_abs_err=flash["max_abs_err"],
-                 ms=flash["ms"], plain_ms=flash["plain_ms"],
-                 bound_ms=flash["bound_ms"], bound_by=flash["bound_by"],
-                 library_ms=flash["library_ms"])
-    print(json.dumps({"kernels": [entry]}), flush=True)
+    entries = []
+    for spec, row, also in ((FLASH, flash, flash_zamba), (SSD, ssd, None)):
+        per_path = {arch: n[spec["name"]] for arch, n in launches.items()}
+        entry = dict(spec, launches=sum(per_path.values()),
+                     launches_per_path=per_path, max_abs_err=row["max_abs_err"],
+                     ms=row["ms"], plain_ms=row["plain_ms"],
+                     bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+                     library_ms=row["library_ms"], shape=row["shape"],
+                     dtype=row["dtype"])
+        if also is not None:
+            entry["at_zamba2"] = {k: also[k] for k in (
+                "shape", "dtype", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms")}
+        entries.append(entry)
+    print(json.dumps({"kernels": entries}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),

@@ -1,9 +1,10 @@
 """Hand-written CUDA kernels for Hopper, with their wrappers.
 
   flash_attention — GQA attention, causal or not, online softmax
-                    (replaces the Pallas TPU kernel of ``repro.kernels``)
+  ssd_scan        — the mamba2 SSD chunked scan, state carried across chunks
+(each replaces one Pallas TPU kernel of ``repro.kernels``)
 
 ``ops`` holds the model-layout wrappers and the launch counts; ``ref`` the
 naive oracles; ``build`` compiles ``csrc/*.cu`` with nvcc at first use.
 """
-from .ops import LAUNCHES, flash_attention, reset_launches  # noqa: F401
+from .ops import LAUNCHES, flash_attention, reset_launches, ssd_scan  # noqa: F401

@@ -7,13 +7,14 @@ route: nothing here falls back from the kernel to the plain version.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
 from .flash_attention import flash_attention_cuda, flash_attention_plain
+from .ssd_scan import ssd_scan_cuda, ssd_scan_plain
 
-LAUNCHES: Dict[str, int] = {"flash_attention": 0}
+LAUNCHES: Dict[str, int] = {"flash_attention": 0, "ssd_scan": 0}
 
 
 def reset_launches() -> None:
@@ -36,3 +37,24 @@ def flash_attention(
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal)
     raise ValueError(f"flash_attention runs on CUDA or CPU tensors, not {q.device}")
+
+
+def ssd_scan(
+    x: torch.Tensor,      # (B, S, nh, hp)
+    dt: torch.Tensor,     # (B, S, nh)
+    A: torch.Tensor,      # (nh,)
+    Bc: torch.Tensor,     # (B, S, n)
+    Cc: torch.Tensor,     # (B, S, n)
+    *,
+    chunk: int = 256,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """SSD scan in the model layout.  Returns (y (B, S, nh, hp) f32,
+    h_final (B, nh, hp, n) f32).  A ragged last chunk is handled inside
+    (it equals the JAX wrapper's dt = 0 padding), so nothing is padded."""
+    if x.is_cuda:
+        out = ssd_scan_cuda(x, dt, A, Bc, Cc, chunk=chunk)
+        LAUNCHES["ssd_scan"] += 1
+        return out
+    if x.device.type == "cpu":
+        return ssd_scan_plain(x, dt, A, Bc, Cc, chunk=chunk)
+    raise ValueError(f"ssd_scan runs on CUDA or CPU tensors, not {x.device}")

@@ -1,0 +1,146 @@
+"""Mamba2 SSD chunked scan: the wrapper of the CUDA kernel and its plain version.
+
+The kernel (``csrc/ssd_scan.cu``) replaces the TPU kernel
+``repro.kernels.ssd_scan.ssd_scan_bhsp``.  Both functions here take the
+model layout: x (B, S, nh, hp), dt (B, S, nh), A (nh,), Bc and Cc (B, S, n)
+shared across heads, and return y (B, S, nh, hp) and the final state
+h (B, nh, hp, n), both float32.
+
+Chunks start at 0 every ``min(chunk, S)`` steps, as in the JAX wrapper, and
+the cumulative decay restarts at each chunk.  The last chunk may be
+partial: that is exactly the JAX wrapper's dt = 0 padding, whose steps
+leave the state unchanged and whose outputs are dropped, so neither
+function pads or transposes.
+
+``ssd_scan_cuda`` launches the kernel and raises on anything it does not
+take; it never falls back.  ``ssd_scan_plain`` computes the same function
+in plain PyTorch, chunk by chunk as the TPU kernel does: the CPU path and
+the comparison on the card.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from . import build
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_FN = None
+
+
+def _check(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+           Bc: torch.Tensor, Cc: torch.Tensor, chunk: int) -> None:
+    if x.ndim != 4 or dt.ndim != 3 or A.ndim != 1 or Bc.ndim != 3 \
+            or Cc.shape != Bc.shape:
+        raise ValueError(
+            f"want x (B,S,nh,hp), dt (B,S,nh), A (nh,), Bc/Cc (B,S,n); got "
+            f"{tuple(x.shape)}, {tuple(dt.shape)}, {tuple(A.shape)}, "
+            f"{tuple(Bc.shape)}, {tuple(Cc.shape)}")
+    B_, S, nh, _ = x.shape
+    if dt.shape != (B_, S, nh) or A.shape != (nh,) or Bc.shape[:2] != (B_, S):
+        raise ValueError(
+            f"x {tuple(x.shape)} does not match dt {tuple(dt.shape)}, "
+            f"A {tuple(A.shape)}, Bc {tuple(Bc.shape)}")
+    if chunk < 1:
+        raise ValueError(f"chunk must be positive, got {chunk}")
+
+
+def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                   Bc: torch.Tensor, Cc: torch.Tensor, *,
+                   chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's function in plain PyTorch, float32 math: per chunk,
+    ``cum = cumsum(dt A)``, the masked decay ``L``, the intra-chunk product,
+    the inter-chunk term through the carried state, then the state update."""
+    _check(x, dt, A, Bc, Cc, chunk)
+    B_, S, nh, hp = x.shape
+    n = Bc.shape[-1]
+    xf, dtf, Bf, Cf = x.float(), dt.float(), Bc.float(), Cc.float()
+    Af = A.float()
+    h = torch.zeros(B_, nh, hp, n, dtype=torch.float32, device=x.device)
+    y = torch.empty(B_, S, nh, hp, dtype=torch.float32, device=x.device)
+    Q = min(chunk, S)
+    for c0 in range(0, S, Q):
+        c1 = min(c0 + Q, S)
+        xq, Bq, Cq = xf[:, c0:c1], Bf[:, c0:c1], Cf[:, c0:c1]
+        dq = dtf[:, c0:c1].transpose(1, 2)                 # (B, nh, Q)
+        cum = torch.cumsum(dq * Af[None, :, None], dim=-1)  # (B, nh, Q)
+        live = torch.ones(c1 - c0, c1 - c0, dtype=torch.bool,
+                          device=x.device).tril()
+        seg = cum[..., :, None] - cum[..., None, :]         # (B, nh, Q, Q)
+        L = torch.exp(seg.masked_fill(~live, float("-inf")))
+        scores = torch.einsum("bqn,bkn->bqk", Cq, Bq)
+        w = L * scores[:, None] * dq[:, :, None, :]
+        yq = torch.einsum("bhqk,bkhp->bqhp", w, xq)
+        yq = yq + torch.exp(cum).transpose(1, 2)[..., None] * torch.einsum(
+            "bqn,bhpn->bqhp", Cq, h)
+        y[:, c0:c1] = yq
+        decay_to_end = torch.exp(cum[..., -1:] - cum) * dq  # (B, nh, Q)
+        upd = torch.einsum("bhq,bqhp,bqn->bhpn", decay_to_end, xq, Bq)
+        h = torch.exp(cum[..., -1])[..., None, None] * h + upd
+    return y, h
+
+
+def _kernel():
+    global _FN
+    if _FN is None:
+        lib = build.load("ssd_scan")
+        fn = lib.ssd_scan_fwd
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [
+            ctypes.POINTER(ctypes.c_int64), ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        max_state, max_chunk = ctypes.c_int(), ctypes.c_int()
+        lib.ssd_scan_limits.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
+        lib.ssd_scan_limits.restype = None
+        lib.ssd_scan_limits(ctypes.byref(max_state), ctypes.byref(max_chunk))
+        lib.ssd_scan_error_string.argtypes = [ctypes.c_int]
+        lib.ssd_scan_error_string.restype = ctypes.c_char_p
+        _FN = (fn, max_state.value, max_chunk.value, lib.ssd_scan_error_string)
+    return _FN
+
+
+def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                  Bc: torch.Tensor, Cc: torch.Tensor, *,
+                  chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the CUDA kernel on PyTorch's current stream; returns
+    (y (B, S, nh, hp), h (B, nh, hp, n)), float32.  Raises on what the
+    kernel does not take and when the launch fails."""
+    _check(x, dt, A, Bc, Cc, chunk)
+    for name, t in (("x", x), ("dt", dt), ("A", A), ("Bc", Bc), ("Cc", Cc)):
+        if not t.is_cuda or t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}; the kernel needs all "
+                             f"of x, dt, A, Bc, Cc on {x.device}, a CUDA device")
+    for name, t in (("x", x), ("Bc", Bc), ("Cc", Cc), ("A", A)):
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name}'s last dim must be contiguous; "
+                             f"strides {t.stride()}")
+    if x.dtype not in _DTYPES or not (x.dtype == dt.dtype == Bc.dtype == Cc.dtype):
+        raise TypeError(f"kernel takes x, dt, Bc, Cc all float32 or all "
+                        f"bfloat16; got {x.dtype}, {dt.dtype}, {Bc.dtype}, "
+                        f"{Cc.dtype}")
+    if A.dtype != torch.float32:
+        raise TypeError(f"kernel takes A in float32, not {A.dtype}")
+    B_, S, nh, hp = x.shape
+    n = Bc.shape[-1]
+    if 0 in (B_, S, nh, hp, n):
+        raise ValueError(f"empty scan: x {tuple(x.shape)}, Bc {tuple(Bc.shape)}")
+    fn, max_state, max_chunk, err_str = _kernel()
+    if n > max_state or min(chunk, S) > max_chunk:
+        raise ValueError(f"state size {n} / chunk {min(chunk, S)} above the "
+                         f"kernel's {max_state} / {max_chunk}")
+    y = torch.empty((B_, S, nh, hp), dtype=torch.float32, device=x.device)
+    h = torch.empty((B_, nh, hp, n), dtype=torch.float32, device=x.device)
+    strides = (ctypes.c_int64 * 10)(
+        x.stride(0), x.stride(1), x.stride(2),
+        dt.stride(0), dt.stride(1), dt.stride(2),
+        Bc.stride(0), Bc.stride(1), Cc.stride(0), Cc.stride(1))
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bc.data_ptr(),
+                 Cc.data_ptr(), y.data_ptr(), h.data_ptr(), _DTYPES[x.dtype],
+                 B_, S, nh, hp, n, chunk, strides, stream)
+    if err != 0:
+        raise RuntimeError(f"ssd_scan kernel failed: CUDA error {err} "
+                           f"({err_str(err).decode()})")
+    return y, h

@@ -2,6 +2,7 @@
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \
       --full --batch 4 --prompt-len 32 --gen 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b --full
 
 Without ``--full`` it serves the reduced twin of the architecture.
 ``--device cpu`` runs on the CPU; without a card and without that flag it
@@ -18,7 +19,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.registry import ARCHS, get_arch
-from repro_torch.models.model import cast_params
+from repro_torch.models.model import SEQ_KEYS, cast_params
 from repro_torch.models.schema import build_schema
 from repro_torch.models.sharding import init_from_schema
 from repro_torch.models.testing import reduced
@@ -37,14 +38,16 @@ def serve_batch(cfg, params, prompts, gen_tokens, *, device=None) -> torch.Tenso
     decode = make_serve_step(cfg)
 
     max_len = S + gen_tokens
-    # allocate the cache at full serving length, then splice prefill output
-    last_logits, pre = prefill(params, {"tokens": prompts})
-    cache = {"pos": pre["pos"]}
-    for key in ("k", "v"):
-        buf = torch.zeros(*pre[key].shape[:2], max_len, *pre[key].shape[3:],
-                          dtype=pre[key].dtype, device=device)
-        buf[:, :, :S] = pre[key]
-        cache[key] = buf
+    # allocate the sequence leaves at full serving length, then splice the
+    # prefill output; state leaves (mamba2 conv/SSM) carry through as they are
+    last_logits, cache = prefill(params, {"tokens": prompts})
+    for key in SEQ_KEYS:
+        if key in cache:
+            pre = cache[key]
+            buf = torch.zeros(*pre.shape[:2], max_len, *pre.shape[3:],
+                              dtype=pre.dtype, device=device)
+            buf[:, :, :S] = pre
+            cache[key] = buf
 
     out = [prompts]
     tok = torch.argmax(last_logits[:, : cfg.vocab], dim=-1)[:, None]

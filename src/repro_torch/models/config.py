@@ -191,7 +191,7 @@ class CellTuning:
     # ``repro_torch.kernels``; their plain versions on a CPU tensor) or
     # "torch" (the chunked PyTorch path).
     attention_impl: str = "kernel"
-    ssm_impl: str = "torch"
+    ssm_impl: str = "kernel"
     # §Perf hillclimb flags (default off = paper-faithful baseline):
     seq_parallel_attn: bool = False   # seq-shard attention when heads don't divide
     remat_chunk_attn: bool = False    # recompute chunk scores in backward

@@ -1,14 +1,18 @@
 """Model forward for the DENSE family (qwen2, yi, nemotron; also VLM
-backbones without their frontend stub).
+backbones without their frontend stub) and the HYBRID family (zamba2: a
+mamba2 backbone with one shared attention+MLP block).
 
-Three modes share one code path:
+Three modes share one code path per family:
   * train    — full-sequence forward, no cache;
-  * prefill  — full-sequence forward EMITTING a KV cache;
+  * prefill  — full-sequence forward EMITTING a KV/state cache;
   * decode   — one-token step consuming/updating the cache (serve_step).
 
 Layer weights are stacked along a leading L axis, as in ``repro``; the layer
 stack is a Python loop over that axis (the JAX package's ``lax.scan``).
-Caches carry the same leading L axis.
+Caches carry the same leading L axis (the shared block's KV cache: one
+entry per application point).  Decode updates the cache's tensors IN PLACE
+(k/v at the new position; the mamba2 conv and SSM states whole) and
+returns them, where the JAX package returns updated copies.
 
 Parameters must already be in the compute dtype: ``cast_params`` casts them
 once, where ``repro.models.model.forward`` casts on every call (which in
@@ -24,17 +28,19 @@ import torch.nn.functional as F
 from .config import ArchConfig, Family, MLPKind
 from .ops import NOSHARD, ShardCtx, attention_chunked, attention_reference, rms_norm, rotary
 from .sharding import ParamSchema as PS
+from .ssm import STATE_KEYS, mamba2_block
 
 Cache = Dict[str, torch.Tensor]
 
 TRAIN, PREFILL, DECODE = "train", "prefill", "decode"
+# cache leaves whose dim 2 is the sequence axis (allocated at max_len); the
+# others are per-layer states, written whole
+SEQ_KEYS = ("k", "v", "shared_k", "shared_v")
 
-_PORTED = (Family.DENSE, Family.VLM)
+_PORTED = (Family.DENSE, Family.VLM, Family.HYBRID)
 _ROADMAP_ITEM = {
     Family.MOE: "ROADMAP, queue 1 'Model stack': moe.py",
     Family.SSM: "ROADMAP, queue 1 'Model stack': ssm.py (mamba1)",
-    Family.HYBRID: "ROADMAP, queue 2 'ssd_scan' and queue 1 'Model stack': "
-                   "ssm.py (mamba2)",
     Family.ENC_DEC: "ROADMAP, queue 1 'Model stack': encoder-decoder stack",
     Family.AUDIO: "ROADMAP, queue 1 'Model stack': encoder-decoder stack",
 }
@@ -160,6 +166,48 @@ def _dense_stack(params, h, cfg, ctx, cache, *, mode):
     return h, new_cache
 
 
+def _flat_layer(params: Dict, i: int) -> Dict:
+    """Layer i of a flat ``{name: [L, ...]}`` stack (the mamba2 layers)."""
+    return {name: w[i] for name, w in params["layers"].items()}
+
+
+def _hybrid_stack(params, h, cfg, ctx, cache, *, mode):
+    """zamba2: mamba2 backbone; a single SHARED attention+MLP block applied
+    after every ``shared_attn_period`` layers (own KV cache per application
+    point).  G = L // period groups of ``period`` mamba2 layers, each
+    followed by the shared block, then the L - G * period tail layers."""
+    period = cfg.shared_attn_period
+    pos0 = cache["pos"] if cache is not None else None
+    shared = params["shared"]
+    states, ks, vs = [], [], []
+    for i in range(cfg.n_layers):
+        lc = {key: cache[key][i] for key in STATE_KEYS} if cache is not None else None
+        h, st = mamba2_block(_flat_layer(params, i), h, cfg, ctx, cache=lc,
+                             return_state=mode == PREFILL)
+        if mode == PREFILL:
+            states.append(st)
+        if (i + 1) % period == 0:
+            g = i // period
+            kv = (cache["shared_k"][g], cache["shared_v"][g], pos0) \
+                if cache is not None else None
+            h, (k, v) = attention_block(shared["attn"], h, cfg, ctx, mode=mode,
+                                        kv_cache=kv)
+            h = mlp_block(shared["mlp"], h, cfg)
+            if mode == PREFILL:
+                ks.append(k)
+                vs.append(v)
+    new_cache = None
+    if mode == PREFILL:
+        new_cache = {key: torch.stack([st[key] for st in states]) for key in STATE_KEYS}
+        new_cache.update(shared_k=torch.stack(ks), shared_v=torch.stack(vs),
+                         pos=torch.tensor(h.shape[1], dtype=torch.int32,
+                                          device=h.device))
+    elif mode == DECODE:
+        # every lane was updated in place
+        new_cache = dict(cache, pos=pos0 + 1)
+    return h, new_cache
+
+
 def backbone(params: Dict, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *,
              ctx: ShardCtx = NOSHARD, mode: str = TRAIN,
              cache: Optional[Cache] = None) -> Tuple[torch.Tensor, Optional[Cache]]:
@@ -172,7 +220,8 @@ def backbone(params: Dict, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *,
             f"{cfg.name} ({cfg.family.value}) is not ported yet: "
             f"{_ROADMAP_ITEM[cfg.family]}")
     h = params["embed"][batch["tokens"]]
-    h, new_cache = _dense_stack(params, h, cfg, ctx, cache, mode=mode)
+    stack = _hybrid_stack if cfg.family == Family.HYBRID else _dense_stack
+    h, new_cache = stack(params, h, cfg, ctx, cache, mode=mode)
     return rms_norm(h, params["final_norm"], cfg.norm_eps), new_cache
 
 
@@ -203,7 +252,28 @@ def cache_schema(cfg: ArchConfig, batch: int, max_len: int, enc_len: int = 0) ->
             f"{cfg.name} ({cfg.family.value}) is not ported yet: "
             f"{_ROADMAP_ITEM[cfg.family]}")
     L, KV, hd = cfg.n_layers, cfg.n_kv_heads, cfg.hd
+    pos = PS((), (), init="zeros", dtype=torch.int32)
+    if cfg.family == Family.HYBRID:
+        di, n, K = cfg.d_inner, cfg.ssm.d_state, cfg.ssm.d_conv
+        nh = di // cfg.ssm.head_dim
+        G = L // cfg.shared_attn_period
+        shared_kv = PS((G, batch, max_len, KV, hd),
+                       ("groups", "batch", "seq", "heads_kv", "hd_cache"),
+                       init="zeros")
+        return {
+            "conv_x": PS((L, batch, K - 1, di),
+                         ("layers", "batch", "conv", "d_inner"), init="zeros"),
+            "conv_B": PS((L, batch, K - 1, n),
+                         ("layers", "batch", "conv", "state"), init="zeros"),
+            "conv_C": PS((L, batch, K - 1, n),
+                         ("layers", "batch", "conv", "state"), init="zeros"),
+            "ssm": PS((L, batch, nh, cfg.ssm.head_dim, n),
+                      ("layers", "batch", "ssm_heads", "hd", "state"),
+                      init="zeros", dtype=torch.float32),
+            "shared_k": shared_kv,
+            "shared_v": shared_kv,
+            "pos": pos,
+        }
     kv = PS((L, batch, max_len, KV, hd),
             ("layers", "batch", "seq", "heads_kv", "hd_cache"), init="zeros")
-    pos = PS((), (), init="zeros", dtype=torch.int32)
     return {"k": kv, "v": kv, "pos": pos}

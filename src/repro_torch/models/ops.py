@@ -15,6 +15,7 @@ import torch
 
 NEG_INF = -1e30
 ATTENTION_IMPLS = ("kernel", "torch")
+SSM_IMPLS = ("kernel", "torch")
 
 
 @dataclass(frozen=True)
@@ -26,14 +27,19 @@ class ShardCtx:
     ``attention_impl``: "kernel" (prefill attention through
     ``kernels.ops.flash_attention``: the CUDA kernel on a CUDA tensor, its
     plain version on a CPU tensor) or "torch" (``attention_chunked``).
+    ``ssm_impl``: "kernel" (the mamba2 prefill scan through
+    ``kernels.ops.ssd_scan``, likewise) or "torch" (``ssm.ssd_chunked``).
     """
 
     attention_impl: str = "kernel"
+    ssm_impl: str = "kernel"
 
     def __post_init__(self):
         if self.attention_impl not in ATTENTION_IMPLS:
             raise ValueError(
                 f"attention_impl {self.attention_impl!r} not in {ATTENTION_IMPLS}")
+        if self.ssm_impl not in SSM_IMPLS:
+            raise ValueError(f"ssm_impl {self.ssm_impl!r} not in {SSM_IMPLS}")
 
 
 NOSHARD = ShardCtx()

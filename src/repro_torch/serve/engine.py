@@ -6,10 +6,11 @@ admitted into free slots (a B=1 prefill fills the slot's cache lane), every
 engine tick decodes ONE token for ALL slots, and finished sequences (EOS /
 max tokens) free their slot immediately for the next queued request.
 
-The cache pool is allocated once, in the compute dtype, with the layout
-``(L, B, S_max, KV, hd)`` of ``cache_schema``.  Idle slots decode a stale
-token at position 0 of their own lane, which the next admission overwrites,
-as in ``repro.serve.engine``.
+The cache pool is allocated once, in the compute dtype (the mamba2 SSM
+state in float32), with the layouts of ``cache_schema``: ``(L, B, S_max,
+KV, hd)`` for k/v, and per-layer state lanes for the hybrid family.  Idle
+slots decode a stale token at position 0 of their own lane, which the next
+admission overwrites, as in ``repro.serve.engine``.
 """
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.models.config import ArchConfig, CellTuning
-from repro_torch.models.model import cache_schema, cast_params
+from repro_torch.models.model import SEQ_KEYS, cache_schema, cast_params
 from repro_torch.models.ops import ShardCtx
 from repro_torch.models.sharding import map_schema
 from repro_torch.train.steps import make_prefill_step, make_serve_step
@@ -85,7 +86,8 @@ class ServeEngine:
         self.max_len = max_len
 
         # single-sequence prefill (B=1) + pooled decode (B=slots)
-        ctx = ShardCtx(attention_impl=tuning.attention_impl)
+        ctx = ShardCtx(attention_impl=tuning.attention_impl,
+                       ssm_impl=tuning.ssm_impl)
         self._prefill = make_prefill_step(cfg, ctx)
         self._decode = make_serve_step(cfg, ctx)
 
@@ -128,12 +130,18 @@ class ServeEngine:
             self.stats.admitted += 1
 
     def _write_slot(self, slot: int, cache1, seq_len: int) -> None:
-        """Copy a single-sequence (B=1) prefill cache into the pool lane,
-        zeroing the rest of the lane."""
-        for key in ("k", "v"):
-            lane = self.cache[key][:, slot]                 # (L, S_max, KV, hd)
-            lane[:, :seq_len] = cache1[key][:, 0]
-            lane[:, seq_len:] = 0
+        """Copy a single-sequence (B=1) prefill cache into the pool lane:
+        sequence leaves up to ``seq_len`` with the rest of the lane zeroed,
+        state leaves whole."""
+        for key, pool in self.cache.items():
+            if key == "pos":
+                continue
+            lane = pool[:, slot]                            # drop the B dim
+            if key in SEQ_KEYS:
+                lane[:, :seq_len] = cache1[key][:, 0]
+                lane[:, seq_len:] = 0
+            else:
+                lane.copy_(cache1[key][:, 0])
 
     # -- decode tick -----------------------------------------------------------
 
@@ -148,7 +156,7 @@ class ServeEngine:
         t0 = time.perf_counter()
         cache = dict(self.cache, pos=torch.as_tensor(self.slot_pos, device=self.device))
         toks = torch.as_tensor(self._next_tok[:, None], device=self.device)
-        logits, _ = self._decode(self.params, cache, toks)   # k/v updated in place
+        logits, _ = self._decode(self.params, cache, toks)   # updated in place
         nxt = torch.argmax(logits[:, : self.cfg.vocab], dim=-1).cpu().numpy()
         self.stats.decode_s += time.perf_counter() - t0
 

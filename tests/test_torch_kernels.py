@@ -1,12 +1,17 @@
-"""The port's flash attention on the CPU (the kernel's plain version) against
-the JAX package's Pallas kernel in interpret mode, on the same numpy inputs.
+"""The port's kernels on the CPU (each kernel's plain version) against the
+JAX package's Pallas kernels in interpret mode, on the same numpy inputs.
 
-Tolerances are those of tests/test_kernels.py: f32 2e-5 (summation order
-differs), bf16 2e-2 (both sides take the same bf16 inputs and compute in f32;
-the output is rounded to bf16 once, which is within one bf16 ulp at |o| < 1),
-and 1e-4 for logits around 40.  The JAX wrapper runs at its default blocks
-(one block per sequence at these sizes) to keep interpret mode fast; its
-tiling is covered by tests/test_kernels.py.
+Flash attention: the tolerances of tests/test_kernels.py, f32 2e-5
+(summation order differs), bf16 2e-2 (both sides take the same bf16 inputs
+and compute in f32; the output is rounded to bf16 once, which is within one
+bf16 ulp at |o| < 1), and 1e-4 for logits around 40.  The JAX wrapper runs
+at its default blocks (one block per sequence at these sizes) to keep
+interpret mode fast; its tiling is covered by tests/test_kernels.py.
+
+SSD scan: f32 5e-4 and bf16 5e-2, as tests/test_kernels.py holds the TPU
+kernel to its oracle (float32 cumulative sums over a chunk, exponentiated,
+in another order); 1e-4 against the port's own oracle and chunked path, as
+tests/test_kernels.py pins the kernel to the chunked path.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -14,12 +19,15 @@ import pytest
 import torch
 
 from repro.kernels.ops import flash_attention as jax_flash
-from repro_torch.kernels import LAUNCHES, flash_attention, reset_launches
+from repro.kernels.ops import ssd_scan as jax_ssd_scan
+from repro_torch.kernels import LAUNCHES, flash_attention, reset_launches, ssd_scan
 from repro_torch.kernels.flash_attention import (
     flash_attention_cuda,
     flash_attention_plain,
 )
-from repro_torch.kernels.ref import attention_ref
+from repro_torch.kernels.ref import attention_ref, ssd_ref
+from repro_torch.kernels.ssd_scan import ssd_scan_cuda, ssd_scan_plain
+from repro_torch.models.ssm import ssd_chunked
 
 # the shape list of tests/test_kernels.py: (B, S, H, KV, hd)
 ATTN_SHAPES = [
@@ -96,7 +104,9 @@ def test_cpu_call_leaves_launch_count_at_zero():
     reset_launches()
     q, k, v = (torch.from_numpy(a) for a in _inputs(1, 32, 32, 2, 1, 16, seed=1))
     flash_attention(q, k, v, causal=True)
-    assert LAUNCHES == {"flash_attention": 0}
+    ssd_scan(*(torch.from_numpy(a) for a in _ssd_inputs(1, 20, 2, 8, 4, seed=1)),
+             chunk=8)
+    assert LAUNCHES == {"flash_attention": 0, "ssd_scan": 0}
 
 
 def test_causal_needs_equal_lengths():
@@ -110,3 +120,96 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     q, k, v = (torch.from_numpy(a) for a in _inputs(1, 16, 16, 2, 2, 8, seed=4))
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention_cuda(q, k, v, causal=True)
+
+
+# --------------------------------------------------------------------------
+# SSD scan (mamba2)
+# --------------------------------------------------------------------------
+
+# the shape list of tests/test_kernels.py: (B, S, nh, hp, n, chunk)
+SSD_SHAPES = [
+    (1, 64, 2, 16, 8, 32),
+    (2, 128, 4, 32, 16, 64),
+    (1, 200, 4, 16, 8, 64),      # S not a chunk multiple -> ragged last chunk
+    (2, 96, 1, 64, 32, 32),      # single head, wide state
+    (1, 256, 8, 8, 4, 256),      # single chunk
+]
+
+
+def _ssd_inputs(B, S, nh, hp, n, seed):
+    """x, dt = softplus(normal), A = -exp(normal), Bc, Cc, as the inputs of
+    tests/test_kernels.py (drawn with numpy here)."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, S, nh, hp), dtype=np.float32)
+    dt = np.logaddexp(0.0, rng.standard_normal((B, S, nh))).astype(np.float32)
+    A = -np.exp(rng.standard_normal(nh)).astype(np.float32)
+    Bc = rng.standard_normal((B, S, n), dtype=np.float32)
+    Cc = rng.standard_normal((B, S, n), dtype=np.float32)
+    return x, dt, A, Bc, Cc
+
+
+def _ssd_tol(dtype):
+    return dict(atol=5e-2, rtol=5e-2) if dtype == "bfloat16" \
+        else dict(atol=5e-4, rtol=5e-4)
+
+
+@pytest.mark.parametrize("B,S,nh,hp,n,chunk", SSD_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_scan_matches_jax_kernel(B, S, nh, hp, n, chunk, dtype):
+    x, dt, A, Bc, Cc = _ssd_inputs(B, S, nh, hp, n, seed=S + nh)
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    y, h = ssd_scan(*(torch.from_numpy(a).to(td) for a in (x, dt)),
+                    torch.from_numpy(A),
+                    *(torch.from_numpy(a).to(td) for a in (Bc, Cc)), chunk=chunk)
+    yj, hj = jax_ssd_scan(*(jnp.asarray(a, jd) for a in (x, dt)), jnp.asarray(A),
+                          *(jnp.asarray(a, jd) for a in (Bc, Cc)),
+                          chunk=chunk, interpret=True)
+    assert y.dtype == h.dtype == torch.float32
+    assert y.shape == (B, S, nh, hp) and h.shape == (B, nh, hp, n)
+    np.testing.assert_allclose(y.numpy(), np.asarray(yj), **_ssd_tol(dtype))
+    np.testing.assert_allclose(h.numpy(), np.asarray(hj), **_ssd_tol(dtype))
+
+
+@pytest.mark.parametrize("B,S,nh,hp,n,chunk", SSD_SHAPES)
+def test_ssd_plain_matches_sequential_oracle(B, S, nh, hp, n, chunk):
+    args = [torch.from_numpy(a) for a in _ssd_inputs(B, S, nh, hp, n, seed=7)]
+    y, h = ssd_scan_plain(*args, chunk=chunk)
+    yr, hr = ssd_ref(*args)
+    np.testing.assert_allclose(y.numpy(), yr.numpy(), atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(h.numpy(), hr.numpy(), atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("S,chunk", [(128, 32), (100, 32), (20, 64)])
+def test_ssd_plain_matches_chunked_path(S, chunk):
+    args = [torch.from_numpy(a) for a in _ssd_inputs(2, S, 4, 16, 8, seed=9)]
+    y1, h1 = ssd_scan_plain(*args, chunk=chunk)
+    y2, h2 = ssd_chunked(*args, chunk)
+    np.testing.assert_allclose(y1.numpy(), y2.numpy(), atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(h1.numpy(), h2.numpy(), atol=1e-4, rtol=1e-4)
+
+
+def test_ssd_ragged_chunk_equals_dt0_padding():
+    """A partial last chunk gives what the JAX wrapper's dt = 0 padding
+    gives: the same outputs on the first S steps and the same final state."""
+    x, dt, A, Bc, Cc = _ssd_inputs(1, 45, 3, 8, 4, seed=3)
+    pad = [(0, 0), (0, 19)]
+    padded = [np.pad(a, pad + [(0, 0)] * (a.ndim - 2)) for a in (x, dt, Bc, Cc)]
+    y, h = ssd_scan_plain(*(torch.from_numpy(a) for a in (x, dt, A, Bc, Cc)), chunk=16)
+    yp, hp_ = ssd_scan_plain(*(torch.from_numpy(a) for a in padded[:2]),
+                             torch.from_numpy(A),
+                             *(torch.from_numpy(a) for a in padded[2:]), chunk=16)
+    np.testing.assert_allclose(y.numpy(), yp[:, :45].numpy(), atol=1e-6, rtol=1e-6)
+    np.testing.assert_allclose(h.numpy(), hp_.numpy(), atol=1e-6, rtol=1e-6)
+
+
+def test_ssd_kernel_wrapper_refuses_cpu_tensors():
+    """The CUDA wrapper never runs the plain version: CPU input raises."""
+    args = [torch.from_numpy(a) for a in _ssd_inputs(1, 16, 2, 8, 4, seed=4)]
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd_scan_cuda(*args, chunk=8)
+
+
+def test_ssd_scan_checks_shapes():
+    x, dt, A, Bc, Cc = (torch.from_numpy(a) for a in _ssd_inputs(1, 16, 2, 8, 4, seed=5))
+    with pytest.raises(ValueError, match="does not match"):
+        ssd_scan(x, dt[:, :8], A, Bc, Cc, chunk=8)

@@ -2,11 +2,18 @@
 weights (JAX ``init_from_schema`` carried across with ``params_from_numpy``)
 and the same numpy inputs, in float32 on the CPU.
 
-Tolerance 1e-5 throughout: both sides compute in float32 and differ only in
-summation order.  For KV caches the 1e-5 is taken of the tensor's largest
-magnitude: their entries grow to ~15 by the last layer on random weights,
-where float32 ordering differences of a few ulp, carried through the layers,
-exceed an absolute 1e-5.
+Tolerance 1e-5 for the dense family: both sides compute in float32 and
+differ only in summation order.  For KV caches the 1e-5 is taken of the
+tensor's largest magnitude: their entries grow to ~15 by the last layer on
+random weights, where float32 ordering differences of a few ulp, carried
+through the layers, exceed an absolute 1e-5.
+
+The hybrid family (reduced zamba2: 5 mamba2 layers, the shared block
+applied twice) is held at 1e-4, the tolerance tests/test_kernels.py holds
+the SSD kernel to against the chunked path: one mamba2 block agrees to
+~1e-6 of its output (tests/test_torch_ssm.py), and the differences grow
+through nine blocks to ~5e-5 of logits of magnitude ~5.  The JAX side runs
+with ``ssm_impl="pallas"`` (interpret mode) and with ``"xla"``.
 """
 import dataclasses
 
@@ -136,8 +143,8 @@ def test_init_is_seeded():
     assert not torch.equal(a["embed"], c["embed"])
 
 
-@pytest.mark.parametrize("name", ["falcon-mamba-7b", "zamba2-1.2b",
-                                  "whisper-large-v3", "phi3.5-moe-42b-a6.6b"])
+@pytest.mark.parametrize("name", ["falcon-mamba-7b", "whisper-large-v3",
+                                  "phi3.5-moe-42b-a6.6b"])
 def test_unported_family_raises(name):
     cfg = reduced(ARCHS[name])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -245,3 +252,108 @@ def test_cast_params_casts_once_and_keeps_non_float32():
     out = tm.cast_params(p, torch.bfloat16, "cpu")
     assert out["a"].dtype == torch.bfloat16 and out["b"]["c"].dtype == torch.int32
     assert tm.cast_params(out, torch.bfloat16, "cpu")["a"] is out["a"]
+
+
+# --------------------------------------------------------------------------
+# hybrid forward (zamba2): train, prefill, decode
+# --------------------------------------------------------------------------
+
+HYB_TOL = dict(atol=1e-4, rtol=1e-4)
+JAX_IMPLS = ["pallas", "xla"]
+
+
+def _close_scaled(ours, ref, tol=1e-4):
+    ref = np.asarray(ref, np.float32)
+    scale = max(1.0, float(np.abs(ref).max()))
+    _close(ours, ref, atol=tol * scale, rtol=tol)
+
+
+@pytest.fixture(scope="module")
+def zamba():
+    """Reduced zamba2 on the JAX weights, and the JAX package's train and
+    prefill outputs for each of its implementations (computed once)."""
+    jcfg = jax_reduced(JAX_ARCHS["zamba2-1.2b"])
+    jparams = jax_init(jax.random.PRNGKey(1), jax_build_schema(jcfg), jnp.float32)
+    cfg = reduced(ARCHS["zamba2-1.2b"])
+    params = params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu")
+    tokens = np.random.default_rng(10).integers(0, cfg.vocab, size=(B, 13)).astype(np.int32)
+    ref = {}
+    for jimpl in JAX_IMPLS:
+        jctx = dataclasses.replace(jops.NOSHARD, attention_impl=jimpl, ssm_impl=jimpl)
+        train, _, _ = jm.forward(jparams, jcfg, {"tokens": tokens}, ctx=jctx,
+                                 mode=jm.TRAIN, compute_dtype=jnp.float32)
+        pre, cache, _ = jm.forward(jparams, jcfg, {"tokens": tokens}, ctx=jctx,
+                                   mode=jm.PREFILL, compute_dtype=jnp.float32)
+        ref[jimpl] = (np.asarray(train), np.asarray(pre),
+                      jax.tree.map(np.asarray, cache))
+    return cfg, params, jcfg, jparams, tokens, ref
+
+
+@pytest.mark.parametrize("jimpl", JAX_IMPLS)
+@pytest.mark.parametrize("impl", IMPLS)
+def test_hybrid_train_forward_matches(zamba, impl, jimpl):
+    """13 tokens: not a multiple of the reduced chunk (8)."""
+    cfg, params, _, _, tokens, ref = zamba
+    ours, cache, _ = tm.forward(params, cfg, {"tokens": _t(tokens)},
+                                ctx=ShardCtx(impl, impl), mode=tm.TRAIN)
+    assert cache is None and ours.shape == (B, 13, cfg.vocab_padded)
+    _close(ours, ref[jimpl][0], **HYB_TOL)
+
+
+@pytest.mark.parametrize("jimpl", JAX_IMPLS)
+@pytest.mark.parametrize("impl", IMPLS)
+def test_hybrid_prefill_forward_and_cache_match(zamba, impl, jimpl):
+    cfg, params, _, _, tokens, ref = zamba
+    ours, cache, _ = tm.forward(params, cfg, {"tokens": _t(tokens)},
+                                ctx=ShardCtx(impl, impl), mode=tm.PREFILL)
+    _, jlogits, jcache = ref[jimpl]
+    _close(ours, jlogits, **HYB_TOL)
+    assert set(cache) == set(jcache)
+    for key in jcache:
+        assert tuple(cache[key].shape) == jcache[key].shape, key
+        _close_scaled(cache[key], jcache[key])
+    assert cache["ssm"].dtype == torch.float32
+
+
+@pytest.mark.parametrize("per_slot", [False, True])
+@pytest.mark.parametrize("impl,jimpl", [("kernel", "pallas"), ("torch", "xla")])
+def test_hybrid_decode_step_matches(zamba, per_slot, impl, jimpl):
+    """One decode step after each side's own prefill, the sequence leaves
+    padded by 4; per-slot positions put each sequence at its own length."""
+    cfg, params, jcfg, jparams, tokens, ref = zamba
+    _, cache, _ = tm.forward(params, cfg, {"tokens": _t(tokens)},
+                             ctx=ShardCtx(impl, impl), mode=tm.PREFILL)
+    jcache = dict(ref[jimpl][2])
+    pad = [(0, 0), (0, 0), (0, 4), (0, 0), (0, 0)]
+    for key in ("shared_k", "shared_v"):
+        jcache[key] = np.pad(jcache[key], pad)
+        cache[key] = torch.nn.functional.pad(cache[key], (0, 0, 0, 0, 0, 4))
+    pos = np.array([13, 8], np.int32) if per_slot else np.int32(13)
+    jcache["pos"] = jnp.asarray(pos)
+    cache["pos"] = torch.as_tensor(pos)
+    nxt = np.array([[3], [250]], np.int32)
+    jl, jc, _ = jm.forward(jparams, jcfg, {"tokens": nxt}, mode=jm.DECODE,
+                           cache=jcache, compute_dtype=jnp.float32)
+    tl, tc, _ = tm.forward(params, cfg, {"tokens": _t(nxt).long()},
+                           ctx=ShardCtx(impl, impl), mode=tm.DECODE, cache=cache)
+    _close(tl, jl, **HYB_TOL)
+    for key in jc:
+        if key != "pos":
+            _close_scaled(tc[key], jc[key])
+    np.testing.assert_array_equal(tc["pos"].numpy(), np.asarray(jc["pos"]))
+
+
+def test_hybrid_cache_schema_matches_jax():
+    cfg = reduced(ARCHS["zamba2-1.2b"])
+    ours = tm.cache_schema(cfg, batch=3, max_len=40)
+    ref = jm.cache_schema(jax_reduced(JAX_ARCHS["zamba2-1.2b"]), batch=3, max_len=40)
+    assert _shapes(ours, ParamSchema) == _shapes(ref, JaxPS)
+    assert ours["ssm"].dtype == torch.float32 and ours["pos"].dtype == torch.int32
+    full = tm.cache_schema(ARCHS["zamba2-1.2b"], batch=4, max_len=1088)
+    jfull = jm.cache_schema(JAX_ARCHS["zamba2-1.2b"], batch=4, max_len=1088)
+    assert _shapes(full, ParamSchema) == _shapes(jfull, JaxPS)
+
+
+def test_ssm_impl_is_validated():
+    with pytest.raises(ValueError, match="ssm_impl"):
+        ShardCtx(ssm_impl="pallas")

@@ -1,7 +1,9 @@
 """The port's continuous-batching engine and ``serve_batch`` against the JAX
-package's, on the dense cases of tests/test_serve_engine.py: the same
-weights (carried across with ``params_from_numpy``) and prompts, float32 on
-the CPU.  Greedy tokens must be equal and the engine counters equal.
+package's, on the dense cases of tests/test_serve_engine.py and on reduced
+zamba2 (hybrid: mamba2 state lanes beside the shared block's KV cache): the
+same weights (carried across with ``params_from_numpy``) and prompts,
+float32 on the CPU.  Greedy tokens must be equal and the engine counters
+equal.
 """
 import jax
 import jax.numpy as jnp
@@ -132,3 +134,80 @@ def test_engine_prefill_counts_tokens(dense_setup):
     stats = engine.run_until_drained()
     assert stats.prefill_tokens == 21 and stats.prefill_s > 0 and stats.decode_s > 0
     assert engine.cache["k"].dtype == torch.float32
+
+
+# --------------------------------------------------------------------------
+# hybrid (zamba2): state lanes written whole, shared KV padded
+# --------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def hybrid_setup():
+    jcfg = jax_reduced(JAX_ARCHS["zamba2-1.2b"])
+    jparams = jax_init(jax.random.PRNGKey(2), jax_build_schema(jcfg), jnp.float32)
+    cfg = reduced(ARCHS["zamba2-1.2b"])
+    params = params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu")
+    return cfg, params, jcfg, jparams
+
+
+def test_hybrid_engine_matches_jax_lockstep(hybrid_setup):
+    cfg = hybrid_setup[0]
+    prompts = _prompts(10, [12, 12, 12], cfg.vocab)
+    (toks, stats), (jtoks, jstats) = _both(hybrid_setup, prompts, [5] * 3,
+                                           slots=2, max_len=40)
+    assert toks == jtoks and stats == jstats
+    assert stats[1] == 3
+
+
+def test_hybrid_engine_matches_jax_staggered_admission(hybrid_setup):
+    """Prompts of 13 and 9 tokens: neither is a multiple of the chunk (8)."""
+    cfg = hybrid_setup[0]
+    prompts = _prompts(11, [13, 9], cfg.vocab)
+    (toks, stats), (jtoks, jstats) = _both(hybrid_setup, prompts, [6, 4],
+                                           slots=2, max_len=40, ticks_before=3)
+    assert toks == jtoks and stats == jstats
+
+
+def test_hybrid_engine_matches_jax_slot_reuse(hybrid_setup):
+    """Five requests through two slots: every admission overwrites the
+    state lanes a finished (or idle, decoding garbage) slot left behind."""
+    cfg = hybrid_setup[0]
+    prompts = _prompts(12, [10, 7, 11, 10, 6], cfg.vocab)
+    (toks, stats), (jtoks, jstats) = _both(hybrid_setup, prompts, [3] * 5,
+                                           slots=2, max_len=32)
+    assert toks == jtoks and stats == jstats
+    assert stats[0] == stats[1] == 5 and stats[3] == 15
+
+
+def test_hybrid_engine_kernel_and_torch_impls_agree(hybrid_setup):
+    cfg, params = hybrid_setup[:2]
+    prompts = _prompts(13, [9, 14], cfg.vocab)
+    outs = [_run(ServeEngine, Request, cfg, params, prompts, [5, 5], slots=2,
+                 max_len=32, device="cpu",
+                 tuning=CellTuning(compute_dtype="float32", attention_impl=impl,
+                                   ssm_impl=impl))
+            for impl in ("kernel", "torch")]
+    assert outs[0] == outs[1]
+
+
+def test_hybrid_serve_batch_matches_jax(hybrid_setup):
+    cfg, params, jcfg, jparams = hybrid_setup
+    prompts = np.stack(_prompts(14, [11, 11, 11], cfg.vocab))
+    ours = serve_batch(cfg, params, prompts, 6, device="cpu")
+    ref = jax_serve_batch(jcfg, jparams, jnp.asarray(prompts), 6)
+    np.testing.assert_array_equal(ours.numpy(), np.asarray(ref))
+
+
+def test_hybrid_engine_cache_lanes(hybrid_setup):
+    """The pool holds every leaf of the hybrid schema; the SSM state stays
+    float32 under a bfloat16 compute dtype."""
+    cfg, params = hybrid_setup[:2]
+    engine = ServeEngine(cfg, params, slots=2, max_len=24, device="cpu",
+                         tuning=CellTuning(compute_dtype="bfloat16"))
+    assert set(engine.cache) == {"conv_x", "conv_B", "conv_C", "ssm",
+                                 "shared_k", "shared_v", "pos"}
+    assert engine.cache["ssm"].dtype == torch.float32
+    assert engine.cache["shared_k"].dtype == torch.bfloat16
+    engine.submit(Request(0, _prompts(15, [10], cfg.vocab)[0], max_new_tokens=3))
+    stats = engine.run_until_drained()
+    assert stats.finished == 1 and stats.decoded_tokens == 3
