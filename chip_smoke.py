@@ -12,13 +12,15 @@ Phases, each printing one JSON line:
                at the serving shapes (qwen2-1.5b and zamba2-1.2b's shared
                block) and the repo's test shapes, with its time, the plain
                version's, SDPA's (a yardstick only) and the least time the
-               card could take (bound_ms).
+               card could take (bound_ms).  Each row names the kernel route
+               its dtype takes: tensor_core_bf16 or cuda_core_f32.
   4. ssd     — the SSD scan kernel against its plain version at zamba2's
                prefill shape, ragged, and the repo's test shapes, in float32
                and bfloat16, with its time, the plain version's and its
                bound (no single PyTorch call computes it: library_ms null);
                in float32 both also stand beside the step recurrence
-               (ref.ssd_ref) as a second witness.
+               (ref.ssd_ref) as a second witness.  The slice rows also time
+               each of the kernel's five passes alone (pass_ms).
   5. serve   — per model (qwen2-1.5b, then zamba2-1.2b) at full width and
                depth in bf16, seeded random weights, ServeEngine(slots=4,
                max_len=1088): 8 requests of 1024 prompt tokens and 32 new
@@ -75,6 +77,8 @@ SSD_SHAPES = [(1, 64, 2, 16, 8, 32), (2, 128, 4, 32, 16, 64),
               (1, 200, 4, 16, 8, 64), (2, 96, 1, 64, 32, 32),
               (1, 256, 8, 8, 4, 256)]
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# the flash kernel's route for each dtype (csrc/flash_attention.cu)
+FLASH_ROUTE = {"bfloat16": "tensor_core_bf16", "float32": "cuda_core_f32"}
 SSD_TOL = {"float32": 5e-4, "bfloat16": 5e-2}
 
 
@@ -90,6 +94,34 @@ def card_peaks(name: str):
 
 
 def cuda_ms(fn, reps: int = 20, warm: int = 3) -> float:
+    """Device ms per call of ``fn``: ``reps`` calls captured in one CUDA
+    graph, replayed between two CUDA events, so the host's enqueue time
+    (Python, ctypes, allocation) is not in the number."""
+    import torch
+
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    graph.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    del graph
+    return t0.elapsed_time(t1) / reps
+
+
+def eager_ms(fn, reps: int = 20, warm: int = 3) -> float:
+    """ms per call of ``fn`` launched eagerly, as the model path launches
+    it, between two CUDA events: the device time, or the host's enqueue
+    time where that is longer."""
     import torch
 
     for _ in range(warm):
@@ -222,9 +254,11 @@ def phase_kernel(peaks) -> tuple:
         ok = bool((diff <= tol + tol * ref.float().abs()).all()) and \
             bool(torch.isfinite(out).all())
         row = dict(shape=[B, Sq, Sk, H, KV, hd], causal=causal, dtype=dt,
-                   case=what, max_abs_err=err, tol=tol, ok=ok)
+                   kernel_route=FLASH_ROUTE[dt], case=what, max_abs_err=err,
+                   tol=tol, ok=ok)
         if what in ("slice", "zamba2"):
             row["ms"] = cuda_ms(lambda: flash_attention_cuda(q, k, v, causal=causal))
+            row["eager_ms"] = eager_ms(lambda: flash_attention_cuda(q, k, v, causal=causal))
             row["plain_ms"] = cuda_ms(lambda: flash_attention_plain(q, k, v, causal=causal))
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
             row["library_ms"] = cuda_ms(
@@ -248,7 +282,13 @@ def phase_ssd(peaks) -> dict:
     import torch
 
     from repro_torch.kernels.ref import ssd_ref
-    from repro_torch.kernels.ssd_scan import ssd_scan_cuda, ssd_scan_plain
+    from repro_torch.kernels.ssd_scan import (
+        ALL_PASSES,
+        PASSES,
+        ssd_scan_cuda,
+        ssd_scan_launcher,
+        ssd_scan_plain,
+    )
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -287,8 +327,9 @@ def phase_ssd(peaks) -> dict:
             err = max(err, float(diff.max()))
             ok = ok and bool((diff <= tol + tol * ref.abs()).all()) \
                 and bool(torch.isfinite(out).all())
-        row = dict(shape=[B, S, nh, hp, n, chunk], dtype=dt, case=what,
-                   max_abs_err=err, tol=tol, ok=ok)
+        row = dict(shape=[B, S, nh, hp, n, chunk], dtype=dt,
+                   kernel_route="cuda_core_f32", case=what, max_abs_err=err,
+                   tol=tol, ok=ok)
         if dt == "float32":
             # a second witness, not a check: the step recurrence takes no
             # cumulative sum, so where kernel and plain version share one's
@@ -300,6 +341,13 @@ def phase_ssd(peaks) -> dict:
                                float((hh - ho).abs().max()))
         if what == "slice":
             row["ms"] = cuda_ms(lambda: ssd_scan_cuda(x, dts, A, Bc, Cc, chunk=chunk))
+            row["eager_ms"] = eager_ms(lambda: ssd_scan_cuda(x, dts, A, Bc, Cc, chunk=chunk))
+            # each pass alone, on the buffers of one full run (every pass
+            # reads only what the earlier ones wrote, so a repeat is exact)
+            launch, _, _ = ssd_scan_launcher(x, dts, A, Bc, Cc, chunk=chunk)
+            launch(ALL_PASSES)
+            row["pass_ms"] = {name: cuda_ms(lambda bit=bit: launch(bit))
+                              for name, bit in PASSES.items()}
             row["plain_ms"] = cuda_ms(lambda: ssd_scan_plain(x, dts, A, Bc, Cc, chunk=chunk))
             row["library_ms"] = None      # no single PyTorch call computes it
             row["bound_ms"], row["bound_by"], row["bound_flops"], row["bound_bytes"] = \
@@ -499,11 +547,13 @@ def main() -> int:
                      ms=row["ms"], plain_ms=row["plain_ms"],
                      bound_ms=row["bound_ms"], bound_by=row["bound_by"],
                      library_ms=row["library_ms"], shape=row["shape"],
-                     dtype=row["dtype"])
+                     dtype=row["dtype"], kernel_route=row["kernel_route"])
+        if "pass_ms" in row:
+            entry["pass_ms"] = row["pass_ms"]
         if also is not None:
             entry["at_zamba2"] = {k: also[k] for k in (
-                "shape", "dtype", "max_abs_err", "ms", "plain_ms", "bound_ms",
-                "bound_by", "library_ms")}
+                "shape", "dtype", "kernel_route", "max_abs_err", "ms",
+                "plain_ms", "bound_ms", "bound_by", "library_ms")}
         entries.append(entry)
     print(json.dumps({"kernels": entries}), flush=True)
     print(smi, flush=True)

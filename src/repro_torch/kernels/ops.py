@@ -4,6 +4,10 @@ A CUDA tensor goes to the hand-written kernel, which launches or raises; a
 CPU tensor goes to the kernel's plain PyTorch version.  There is no other
 route: nothing here falls back from the kernel to the plain version.
 ``LAUNCHES`` counts kernel launches, one per launch and nowhere else.
+One ``ssd_scan`` count stands for one call of the scan, which launches its
+five passes (cumsum, C.B^T, chunk states, state passing, chunk output) as
+five CUDA kernels on the current stream; one ``flash_attention`` count is
+one kernel launch.
 """
 from __future__ import annotations
 

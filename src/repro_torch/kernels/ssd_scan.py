@@ -12,21 +12,25 @@ partial: that is exactly the JAX wrapper's dt = 0 padding, whose steps
 leave the state unchanged and whose outputs are dropped, so neither
 function pads or transposes.
 
-``ssd_scan_cuda`` launches the kernel and raises on anything it does not
-take; it never falls back.  ``ssd_scan_plain`` computes the same function
-in plain PyTorch, chunk by chunk as the TPU kernel does: the CPU path and
-the comparison on the card.
+``ssd_scan_cuda`` launches the kernel's five passes (cumsum, C.B^T per
+chunk, chunk states, state passing, chunk output; ``csrc/ssd_scan.cu``)
+and raises on anything it does not take; it never falls back.
+``ssd_scan_plain`` computes the same function in plain PyTorch, chunk by
+chunk as the TPU kernel does: the CPU path and the comparison on the card.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Callable, Tuple
 
 import torch
 
 from . import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the kernel's passes, in launch order, and the bit of each in ``passes``
+PASSES = {"cumsum": 1, "cb": 2, "states": 4, "passing": 8, "output": 16}
+ALL_PASSES = sum(PASSES.values())
 _FN = None
 
 
@@ -87,25 +91,32 @@ def _kernel():
     if _FN is None:
         lib = build.load("ssd_scan")
         fn = lib.ssd_scan_fwd
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [
             ctypes.POINTER(ctypes.c_int64), ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        scratch = lib.ssd_scan_scratch_floats
+        scratch.argtypes = [ctypes.c_int] * 6
+        scratch.restype = ctypes.c_int64
         max_state, max_chunk = ctypes.c_int(), ctypes.c_int()
         lib.ssd_scan_limits.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
         lib.ssd_scan_limits.restype = None
         lib.ssd_scan_limits(ctypes.byref(max_state), ctypes.byref(max_chunk))
         lib.ssd_scan_error_string.argtypes = [ctypes.c_int]
         lib.ssd_scan_error_string.restype = ctypes.c_char_p
-        _FN = (fn, max_state.value, max_chunk.value, lib.ssd_scan_error_string)
+        _FN = (fn, scratch, max_state.value, max_chunk.value,
+               lib.ssd_scan_error_string)
     return _FN
 
 
-def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
-                  Bc: torch.Tensor, Cc: torch.Tensor, *,
-                  chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the CUDA kernel on PyTorch's current stream; returns
-    (y (B, S, nh, hp), h (B, nh, hp, n)), float32.  Raises on what the
-    kernel does not take and when the launch fails."""
+def ssd_scan_launcher(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                      Bc: torch.Tensor, Cc: torch.Tensor, *, chunk: int
+                      ) -> Tuple[Callable[[int], None], torch.Tensor, torch.Tensor]:
+    """Check the inputs and allocate the outputs and the scratch of one
+    scan.  Returns ``(launch, y, h)``: ``launch(passes)`` launches the
+    passes named by the bit mask (``PASSES`` gives each bit; ``ALL_PASSES``
+    runs the scan) on PyTorch's current stream and raises when one fails.
+    A single pass reads what the earlier ones wrote, so alone it is only
+    meaningful after a full run on the same buffers, to time it."""
     _check(x, dt, A, Bc, Cc, chunk)
     for name, t in (("x", x), ("dt", dt), ("A", A), ("Bc", Bc), ("Cc", Cc)):
         if not t.is_cuda or t.device != x.device:
@@ -125,22 +136,43 @@ def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     n = Bc.shape[-1]
     if 0 in (B_, S, nh, hp, n):
         raise ValueError(f"empty scan: x {tuple(x.shape)}, Bc {tuple(Bc.shape)}")
-    fn, max_state, max_chunk, err_str = _kernel()
+    fn, scratch_floats, max_state, max_chunk, err_str = _kernel()
     if n > max_state or min(chunk, S) > max_chunk:
         raise ValueError(f"state size {n} / chunk {min(chunk, S)} above the "
                          f"kernel's {max_state} / {max_chunk}")
+    floats = scratch_floats(B_, S, nh, hp, n, chunk)
+    if floats < 0:
+        raise ValueError(f"kernel does not take x {tuple(x.shape)}, n {n}, "
+                         f"chunk {chunk}")
     y = torch.empty((B_, S, nh, hp), dtype=torch.float32, device=x.device)
     h = torch.empty((B_, nh, hp, n), dtype=torch.float32, device=x.device)
+    scratch = torch.empty(floats, dtype=torch.float32, device=x.device)
     strides = (ctypes.c_int64 * 10)(
         x.stride(0), x.stride(1), x.stride(2),
         dt.stride(0), dt.stride(1), dt.stride(2),
         Bc.stride(0), Bc.stride(1), Cc.stride(0), Cc.stride(1))
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bc.data_ptr(),
-                 Cc.data_ptr(), y.data_ptr(), h.data_ptr(), _DTYPES[x.dtype],
-                 B_, S, nh, hp, n, chunk, strides, stream)
-    if err != 0:
-        raise RuntimeError(f"ssd_scan kernel failed: CUDA error {err} "
-                           f"({err_str(err).decode()})")
+    # the closure holds the tensors themselves, so none of its buffers is
+    # freed while it can still launch
+    buffers = (x, dt, A, Bc, Cc, y, h, scratch)
+
+    def launch(passes: int) -> None:
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            err = fn(*(t.data_ptr() for t in buffers), _DTYPES[x.dtype], B_,
+                     S, nh, hp, n, chunk, passes, strides, stream)
+        if err != 0:
+            raise RuntimeError(f"ssd_scan kernel failed: CUDA error {err} "
+                               f"({err_str(err).decode()})")
+
+    return launch, y, h
+
+
+def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                  Bc: torch.Tensor, Cc: torch.Tensor, *,
+                  chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the kernel's five passes on PyTorch's current stream; returns
+    (y (B, S, nh, hp), h (B, nh, hp, n)), float32.  Raises on what the
+    kernel does not take and when a launch fails."""
+    launch, y, h = ssd_scan_launcher(x, dt, A, Bc, Cc, chunk=chunk)
+    launch(ALL_PASSES)
     return y, h

@@ -4,7 +4,9 @@ there is no CUDA device; on the card run them with
 ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
 
 Tolerances, as in tests/test_kernels.py: flash attention f32 2e-5 and bf16
-2e-2; the SSD scan f32 5e-4 and bf16 5e-2.
+2e-2; the SSD scan f32 5e-4 and bf16 5e-2.  Flash attention takes two
+routes by dtype: bfloat16 runs on the tensor cores, float32 on the CUDA
+cores; both are held to the same plain version.
 """
 import math
 
@@ -49,6 +51,37 @@ def test_kernel_matches_plain_on_card(card, B, Sq, Sk, H, KV, hd, causal, dtype)
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
 
 
+def _flash_check(card, B, Sq, Sk, H, KV, hd, causal, dtype, seed):
+    g = torch.Generator(device=card).manual_seed(seed)
+    q = torch.randn(B, Sq, H, hd, generator=g, device=card).to(dtype)
+    k = torch.randn(B, Sk, KV, hd, generator=g, device=card).to(dtype)
+    v = torch.randn(B, Sk, KV, hd, generator=g, device=card).to(dtype)
+    out = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    ref = flash_attention_plain(q, k, v, causal=causal)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("hd", [8, 16, 32, 64, 80, 96, 128, 192, 256])
+def test_bf16_tensor_core_route_every_head_dim(card, hd, causal):
+    """Every head dim the kernel lists; hd 8 is zero-padded to 16."""
+    _flash_check(card, 2, 130, 130, 6, 2, hd, causal, torch.bfloat16, seed=hd)
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,causal", [
+    (1, 1, 1, 6, 1, True),            # S = 1
+    (2, 17, 17, 6, 1, True),          # S = 17, GQA 6:1
+    (1, 1000, 1000, 12, 2, True),     # ragged against the 64-row tiles
+    (1, 1000, 1000, 8, 8, True),      # MHA
+    (2, 17, 300, 4, 4, False),        # Sq < Sk
+    (1, 300, 17, 6, 1, False),        # Sq > Sk
+])
+def test_bf16_tensor_core_route_shapes(card, B, Sq, Sk, H, KV, causal):
+    _flash_check(card, B, Sq, Sk, H, KV, 128, causal, torch.bfloat16, seed=Sq + Sk)
+
+
 def test_kernel_reads_strided_views(card):
     """q/k/v as views into a fused (B, S, H + 2 KV, hd) projection."""
     g = torch.Generator(device=card).manual_seed(0)
@@ -58,6 +91,22 @@ def test_kernel_reads_strided_views(card):
     ref = flash_attention_plain(q.contiguous(), k.contiguous(), v.contiguous(),
                                 causal=True)
     torch.testing.assert_close(out, ref, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+def test_bf16_kernel_reads_strided_views(card, offset):
+    """bf16 q/k/v as views into a fused projection (GQA 6:1, hd 128); with
+    offset 1 no row starts on 16 bytes and the tiles load synchronously."""
+    B, S, H, KV, hd = 2, 200, 12, 2, 128
+    g = torch.Generator(device=card).manual_seed(1)
+    flat = torch.randn(B * S * (H + 2 * KV) * hd + offset, generator=g,
+                       device=card).to(torch.bfloat16)
+    qkv = flat[offset:].view(B, S, H + 2 * KV, hd)
+    q, k, v = qkv[:, :, :H], qkv[:, :, H:H + KV], qkv[:, :, H + KV:]
+    out = flash_attention(q, k, v, causal=True)
+    ref = flash_attention_plain(q.contiguous(), k.contiguous(), v.contiguous(),
+                                causal=True)
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=2e-2)
 
 
 def test_engine_on_card_launches_kernel_per_layer(card):
@@ -105,6 +154,9 @@ def _ssd_close(out, ref, dtype):
     (1, 1000, 64, 64, 64, 256),      # ragged last chunk
     (2, 77, 3, 40, 6, 16),           # partial column block, n not a multiple of 4
     (1, 50, 2, 16, 8, 64),           # one chunk shorter than the chunk size
+    (2, 333, 3, 72, 70, 64),         # 6 chunks, ragged; hp and n past one 64 tile
+    (1, 600, 2, 64, 256, 128),       # the largest state, 5 chunks, ragged
+    (2, 130, 4, 16, 16, 100),        # chunk not a multiple of the 64-step tile
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ssd_kernel_matches_plain_on_card(card, B, S, nh, hp, n, chunk, dtype):
@@ -130,6 +182,49 @@ def test_ssd_kernel_reads_strided_views(card):
     out = ssd_scan(x, dt, A, Bc, Cc, chunk=64)
     ref = ssd_scan_plain(*(t.contiguous() for t in (x, dt, A, Bc, Cc)), chunk=64)
     _ssd_close(out, ref, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_state_handoff_to_decode_on_card(card, dtype):
+    """The kernel's final state, after 7 chunks with a ragged last one,
+    continues into the one-step recurrence as the step oracle does."""
+    from repro_torch.kernels.ref import ssd_ref
+
+    B, S, nh, hp, n = 2, 200, 3, 24, 12
+    x, dt, A, Bc, Cc = _ssd_inputs(card, B, S + 1, nh, hp, n, seed=5)
+    x, dt, Bc, Cc = (t.to(dtype) for t in (x, dt, Bc, Cc))
+    y_all, h_all = ssd_ref(x, dt, A, Bc, Cc)
+    _, h = ssd_scan(x[:, :S], dt[:, :S], A, Bc[:, :S], Cc[:, :S], chunk=32)
+    xf, dtf, Bf, Cf = (t[:, S].float() for t in (x, dt, Bc, Cc))
+    h_next = h * torch.exp(dtf * A)[..., None, None] + torch.einsum(
+        "bh,bhp,bn->bhpn", dtf, xf, Bf)
+    y_next = torch.einsum("bhpn,bn->bhp", h_next, Cf)
+    _ssd_close((y_next, h_next), (y_all[:, -1], h_all), dtype)
+
+
+def test_mamba2_decode_continues_kernel_prefill_on_card(card):
+    """Reduced zamba2, layer 0: prefill through the SSD kernel, then one
+    decode step from its state, against a plain-torch prefill of one token
+    more (f32, 5e-4)."""
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.models.ops import ShardCtx
+    from repro_torch.models.schema import build_schema
+    from repro_torch.models.sharding import init_from_schema
+    from repro_torch.models.ssm import mamba2_block
+    from repro_torch.models.testing import reduced
+
+    cfg = reduced(ARCHS["zamba2-1.2b"])
+    params = init_from_schema(0, build_schema(cfg), torch.float32, card)
+    p = {k: v[0] for k, v in params["layers"].items()}
+    S = 5 * cfg.ssm.chunk + 3
+    g = torch.Generator(device=card).manual_seed(2)
+    x = torch.randn(2, S + 1, cfg.d_model, generator=g, device=card)
+    _, state = mamba2_block(p, x[:, :S], cfg, ShardCtx(ssm_impl="kernel"),
+                            return_state=True)
+    cache = {k: v.contiguous() for k, v in state.items()}
+    out, _ = mamba2_block(p, x[:, S:], cfg, ShardCtx(), cache=cache)
+    ref, _ = mamba2_block(p, x, cfg, ShardCtx(ssm_impl="torch"))
+    torch.testing.assert_close(out[:, 0], ref[:, -1], atol=5e-4, rtol=5e-4)
 
 
 def test_hybrid_engine_on_card_launches_kernels(card):
