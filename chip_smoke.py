@@ -32,8 +32,23 @@ Phases, each printing one JSON line:
                for qwen2, 512 and 500 for zamba2), 8 new tokens, with the
                kernels and with the plain torch paths: equal greedy tokens,
                prefill logits within 1e-3.
+  7. planner — the float64 planner (no custom kernel): boutique scenarios
+               1-3 through GreenConstraintPipeline.run -> problem_for ->
+               GreenScheduler.plan under the green, baseline and oracle
+               profiles; synth(500, 200) dense at B=1 and B=8 and
+               synth(2000, 200) sparse, each also with its float inputs
+               rounded to multiples of 2**-8.  Each problem is planned
+               twice on the card and once on the CPU; per problem one line
+               with S, F, N, L, B, backend, greedy and local-search steps,
+               the warm (second) card plan's wall ms beside the CPU's, the
+               placements that differ and both plans' objective, and for
+               the float synthetic problems the idle share of one warm
+               plan under torch.profiler.  Fails when the two card runs
+               differ, a card plan breaks capacity, or card and CPU decide
+               differently on boutique or a dyadic problem.
 
-Then one line {"kernels": [...]}, the nvidia-smi line, and last
+Then one line with each phase's seconds, one line {"kernels": [...]}, the
+nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Any failed check raises, so the script exits
 non-zero and prints no result; so does a run without a card or outside a
 checkout of the repository.
@@ -512,6 +527,183 @@ def phase_parity(cfg, prompt_lens) -> None:
         raise RuntimeError(f"parity checks failed: {checks}")
 
 
+# the planner phase: boutique's scenarios through the pipeline under each
+# profile, and the scalability benchmark's synthetic problems at full size
+PLANNER_PROFILES = ("green", "baseline", "oracle")
+PLANNER_LS_ROUNDS = 2          # benchmarks/scheduler_scalability.py's rounds
+PLANNER_B = 8
+
+
+def _timed_plan(sched, problem, cuda: bool):
+    import torch
+
+    if cuda:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = sched.plan(problem)
+    if cuda:
+        torch.cuda.synchronize()
+    return result, 1e3 * (time.perf_counter() - t0)
+
+
+def _decisions(result):
+    """Everything two plans of one problem must agree on: placed, flavour
+    and node per service, skipped services, feasibility, the failing
+    service (in the notes), emissions."""
+    import numpy as np
+
+    return (np.asarray(result.placed).tobytes(),
+            np.asarray(result.fcur).tobytes(),
+            np.asarray(result.ncur).tobytes(),
+            np.asarray(result.emissions_g).tobytes(),
+            [(p.feasible, p.placements, p.skipped_services, p.notes)
+             for p in result.plans])
+
+
+def _differing_placements(a, b) -> int:
+    """Services placed differently (or in one plan only), over branches."""
+    return sum(len({p.service for p in set(pa.placements)
+                    ^ set(pb.placements)})
+               for pa, pb in zip(a.plans, b.plans))
+
+
+def _capacity_ok(app, infra, result) -> bool:
+    """Each feasible branch's plan, checked from its assignment alone:
+    every mandatory service placed, node CPU and RAM within capacity."""
+    must = {s.component_id for s in app.services if s.must_deploy}
+    for plan in result.plans:
+        if not plan.feasible:
+            continue
+        used = {}
+        for p in plan.placements:
+            req = app.service(p.service).flavour(p.flavour).requirements
+            cpu, ram = used.get(p.node, (0.0, 0.0))
+            used[p.node] = (cpu + req.cpu, ram + req.ram_gb)
+        if not must <= {p.service for p in plan.placements}:
+            return False
+        for nid, (cpu, ram) in used.items():
+            cap = infra.node(nid).capabilities
+            if cpu > cap.cpu or ram > cap.ram_gb:
+                return False
+    return True
+
+
+def _plan_case(case, problem, make_cfg, inputs, exact, profile_it) -> dict:
+    """Plan one problem twice on the card and once on the CPU with the
+    port; check the card's decisions against the CPU's (``exact``: any
+    difference fails) and against capacity; time the warm card call."""
+    from repro_torch.core.scheduler import GreenScheduler, reference_objective
+    from repro_torch.launch.profile_serve import profile_window
+
+    app, infra, comp, comm, cs = inputs
+    card = GreenScheduler(make_cfg(), device="cuda")
+    first, cold_ms = _timed_plan(card, problem, True)
+    result, warm_ms = _timed_plan(card, problem, True)
+    on_cpu, cpu_ms = _timed_plan(
+        GreenScheduler(make_cfg(), device="cpu"), problem, False)
+    st, low = result.stats, problem.lowering
+
+    def objective(r):
+        a = r.assignment(0)
+        return reference_objective(app, infra, comp, comm, cs, make_cfg(), a)
+
+    checks = {
+        "card_equals_cpu": _decisions(result) == _decisions(on_cpu),
+        "card_runs_equal": _decisions(result) == _decisions(first),
+        "capacity_ok": _capacity_ok(app, infra, result),
+    }
+    row = dict(
+        case=case, S=low.S, F=low.F, N=low.N,
+        L=low.comm.n_links if low.comm.kind == "sparse" else None,
+        B=result.B, backend=low.comm.kind, exact_inputs=exact,
+        greedy_steps=st.greedy_steps,
+        local_search_steps=list(st.local_search_steps),
+        local_search_steps_cpu=list(on_cpu.stats.local_search_steps),
+        cold_ms=cold_ms, warm_ms=warm_ms, cpu_ms=cpu_ms,
+        feasible=[p.feasible for p in result.plans],
+        emissions_g=[float(e) for e in result.emissions_g],
+        differing_placements=_differing_placements(result, on_cpu),
+        objective_card=objective(result) if result.plans[0].feasible else None,
+        objective_cpu=objective(on_cpu) if on_cpu.plans[0].feasible else None,
+        checks=checks)
+    if profile_it:
+        t0 = time.perf_counter()
+        prof = profile_window(case, lambda: card.plan(problem), 6,
+                              host_ops=False)
+        row.update(profiled_wall_ms=prof["wall_ms"],
+                   device_kernel_ms=prof["kernel_ms"],
+                   idle_share=prof["idle_share"], launches=prof["launches"],
+                   top_kernels=prof["top"],
+                   profile_s=time.perf_counter() - t0)
+    emit("planner", **row)
+    must_hold = ["capacity_ok", "card_runs_equal"]
+    if exact:
+        must_hold.append("card_equals_cpu")
+    if not all(checks[k] for k in must_hold):
+        raise RuntimeError(f"planner checks failed on {case}: {checks}")
+    return row
+
+
+def phase_planner() -> list:
+    """The port's planning path on the card at full size.
+
+    Boutique scenarios 1-3 (the paper's case study, S=10) go through
+    ``GreenConstraintPipeline.run`` -> ``problem_for`` ->
+    ``GreenScheduler.plan`` under each profile.  The scalability
+    benchmark's synthetic problems run at its sizes: synth(500, 200)
+    dense at B=1 and B=8 (ci scaled per branch from the seed, an
+    emission-weighted profile so the branches differ) and synth(2000,
+    200) sparse; each also with every float input rounded to a multiple
+    of 2**-8, where every sum is exact in any order.  The card must
+    decide exactly as the CPU on boutique and the dyadic problems."""
+    import numpy as np
+
+    from repro_torch.configs import boutique
+    from repro_torch.configs.synth import synth, to_dyadic
+    from repro_torch.core.lowering import ScenarioBatch
+    from repro_torch.core.pipeline import GreenConstraintPipeline
+    from repro_torch.core.problem import PlacementProblem
+    from repro_torch.core.scheduler import SchedulerConfig
+
+    rows = []
+    for n in (1, 2, 3):
+        app, infra, mon = boutique.scenario(n)
+        pipe = GreenConstraintPipeline(device="cuda")
+        out = pipe.run(app, infra, mon)
+        problem = pipe.problem_for(out)
+        inputs = (out.app, out.infra, out.computation, out.communication,
+                  out.constraints)
+        for prof in PLANNER_PROFILES:
+            rows.append(_plan_case(
+                f"boutique{n}_{prof}", problem, getattr(SchedulerConfig, prof),
+                inputs, exact=True, profile_it=False))
+
+    def rounds(cfg):
+        cfg.local_search_rounds = PLANNER_LS_ROUNDS
+        return cfg
+
+    scale = np.random.default_rng(0).integers(4, 13, size=(PLANNER_B, 1)) / 8.0
+    scale[0] = 1.0                  # branch 0 is the unscaled problem
+    for S, backend in ((500, "dense"), (2000, "sparse")):
+        base = synth(S, 200)
+        for dyadic in (False, True):
+            inputs = to_dyadic(base) if dyadic else base
+            problem = PlacementProblem.build(*inputs, backend=backend)
+            tag = f"synth{S}_{backend}" + ("_dyadic" if dyadic else "")
+            rows.append(_plan_case(
+                tag, problem, lambda: rounds(SchedulerConfig.green()),
+                inputs, exact=dyadic, profile_it=not dyadic))
+            if backend == "dense":
+                batch = problem.with_scenarios(ScenarioBatch(
+                    ci=problem.lowering.ci[None, :] * scale))
+                rows.append(_plan_case(
+                    f"{tag}_b{PLANNER_B}", batch,
+                    lambda: rounds(SchedulerConfig(emission_weight=0.25)),
+                    inputs, exact=dyadic, profile_it=not dyadic))
+    return rows
+
+
+
 def main() -> int:
     import torch
 
@@ -525,19 +717,29 @@ def main() -> int:
 
     from repro_torch.configs.registry import get_arch
 
-    smi, name, peaks = phase_device()
-    phase_build()
-    flash, flash_zamba = phase_kernel(peaks)
-    ssd = phase_ssd(peaks)
+    seconds = {}
+
+    def timed(phase, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[phase] = seconds.get(phase, 0.0) + time.perf_counter() - t0
+        return out
+
+    smi, name, peaks = timed("device", phase_device)
+    timed("build", phase_build)
+    flash, flash_zamba = timed("kernel", phase_kernel, peaks)
+    ssd = timed("ssd", phase_ssd, peaks)
 
     launches = {}
     for arch, prompt_lens in (("qwen2-1.5b", (512, 512)),
                               ("zamba2-1.2b", (512, 500))):
         cfg = get_arch(arch)
-        launches[arch] = phase_serve(cfg)
+        launches[arch] = timed(f"serve {arch}", phase_serve, cfg)
         torch.cuda.empty_cache()
-        phase_parity(cfg, prompt_lens)
+        timed(f"parity {arch}", phase_parity, cfg, prompt_lens)
         torch.cuda.empty_cache()
+    timed("planner", phase_planner)
+    emit("seconds", **seconds)
 
     entries = []
     for spec, row, also in ((FLASH, flash, flash_zamba), (SSD, ssd, None)):

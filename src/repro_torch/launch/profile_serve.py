@@ -30,9 +30,18 @@ from repro_torch.models.testing import reduced
 from repro_torch.serve import Request, ServeEngine
 
 
-def _window(name: str, fn, top: int) -> dict:
+def profile_window(name: str, fn, top: int, host_ops: bool = True) -> dict:
+    """Trace ``fn()`` once with ``torch.profiler``: its host-clock wall
+    time (to a synchronize), the summed device kernel time, the idle
+    share, the launches and the ``top`` kernels by time.  ``host_ops=False``
+    traces the device alone: a window of a few hundred thousand launches
+    is then cheaper to summarize, and the host's tracing does not stretch
+    the wall time."""
+    activities = [ProfilerActivity.CUDA]
+    if host_ops:
+        activities.append(ProfilerActivity.CPU)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -86,13 +95,13 @@ def main(argv: Optional[list] = None) -> None:
     submit(slots, 10 * ticks)
     print(json.dumps({"card": smi, "arch": cfg.name, "slots": slots,
                       "prompt_len": prompt_len}), flush=True)
-    print(json.dumps(_window("prefill", engine._admit, top)), flush=True)
+    print(json.dumps(profile_window("prefill", engine._admit, top)), flush=True)
 
     def decode():
         for _ in range(ticks):
             engine.tick()
 
-    print(json.dumps(_window(f"decode x{ticks}", decode, top)), flush=True)
+    print(json.dumps(profile_window(f"decode x{ticks}", decode, top)), flush=True)
 
 
 if __name__ == "__main__":

@@ -249,3 +249,70 @@ def test_hybrid_engine_on_card_launches_kernels(card):
     assert LAUNCHES["ssd_scan"] == 3 * cfg.n_layers
     assert LAUNCHES["flash_attention"] == 3 * (cfg.n_layers // cfg.shared_attn_period)
     assert all(len(r.generated) == 4 for r in reqs)
+
+
+def _plan_card_and_cpu(problem, cfg_factory):
+    from repro_torch.core.scheduler import GreenScheduler
+
+    card = GreenScheduler(cfg_factory(), device="cuda").plan(problem)
+    cpu = GreenScheduler(cfg_factory(), device="cpu").plan(problem)
+    return card, cpu
+
+
+def _assert_same_plans(a, b):
+    for name in ("placed", "fcur", "ncur", "emissions_g"):
+        np.testing.assert_array_equal(getattr(a, name), getattr(b, name))
+    assert a.plans == b.plans
+
+
+@pytest.mark.parametrize("n", [1, 2, 3])
+@pytest.mark.parametrize("profile", ["green", "baseline", "oracle"])
+def test_planner_card_decides_as_cpu_on_boutique(card, n, profile):
+    from repro_torch.configs import boutique
+    from repro_torch.core.pipeline import GreenConstraintPipeline
+    from repro_torch.core.scheduler import SchedulerConfig
+
+    pipe = GreenConstraintPipeline()
+    problem = pipe.problem_for(pipe.run(*boutique.scenario(n)))
+    card_res, cpu_res = _plan_card_and_cpu(
+        problem, getattr(SchedulerConfig, profile))
+    assert card_res.stats.device.startswith("cuda")
+    _assert_same_plans(card_res, cpu_res)
+
+
+@pytest.mark.parametrize("backend,S,N,B", [
+    ("dense", 200, 100, 1), ("dense", 200, 100, 4), ("sparse", 500, 100, 1),
+    ("sparse", 200, 100, 4)])
+def test_planner_card_decides_as_cpu_on_dyadic_synth(card, backend, S, N, B):
+    from repro_torch.configs.synth import synth, to_dyadic
+    from repro_torch.core.lowering import ScenarioBatch
+    from repro_torch.core.problem import PlacementProblem
+    from repro_torch.core.scheduler import SchedulerConfig
+
+    problem = PlacementProblem.build(*to_dyadic(synth(S, N)), backend=backend)
+    if B > 1:
+        scale = np.arange(4, 4 + B)[:, None] / 4.0
+        problem = problem.with_scenarios(
+            ScenarioBatch(ci=problem.lowering.ci[None, :] * scale))
+    card_res, cpu_res = _plan_card_and_cpu(
+        problem, lambda: SchedulerConfig(emission_weight=0.25,
+                                         local_search_rounds=2))
+    _assert_same_plans(card_res, cpu_res)
+
+
+def test_planner_sparse_card_runs_are_bitwise_equal(card):
+    """The sparse segment sums add in one order on the card, so repeated
+    runs of the planner give the same bits (float inputs, B=2)."""
+    from repro_torch.configs.synth import synth
+    from repro_torch.core.lowering import ScenarioBatch
+    from repro_torch.core.problem import PlacementProblem
+    from repro_torch.core.scheduler import GreenScheduler, SchedulerConfig
+
+    problem = PlacementProblem.build(*synth(500, 100), backend="sparse")
+    problem = problem.with_scenarios(ScenarioBatch(
+        ci=problem.lowering.ci[None, :] * np.array([[1.0], [0.7]])))
+    sched = GreenScheduler(SchedulerConfig(emission_weight=0.3,
+                                           local_search_rounds=2))
+    first = sched.plan(problem)
+    for _ in range(2):
+        _assert_same_plans(sched.plan(problem), first)
