@@ -36,16 +36,24 @@ Phases, each printing one JSON line:
                1-3 through GreenConstraintPipeline.run -> problem_for ->
                GreenScheduler.plan under the green, baseline and oracle
                profiles; synth(500, 200) dense at B=1 and B=8 and
-               synth(2000, 200) sparse, each also with its float inputs
-               rounded to multiples of 2**-8.  Each problem is planned
-               twice on the card and once on the CPU; per problem one line
-               with S, F, N, L, B, backend, greedy and local-search steps,
-               the warm (second) card plan's wall ms beside the CPU's, the
-               placements that differ and both plans' objective, and for
-               the float synthetic problems the idle share of one warm
-               plan under torch.profiler.  Fails when the two card runs
-               differ, a card plan breaks capacity, or card and CPU decide
-               differently on boutique or a dyadic problem.
+               synth(2000, 200) sparse (one link per service), then the
+               same shapes with 8 links per service, with dyadic inputs
+               (every sum exact in any order) and with float inputs.
+               Each problem is
+               planned twice on the card and once on the CPU; per problem
+               one line with S, F, N, L, B, backend, greedy and
+               local-search steps, the warm (second) card plan's wall ms
+               beside the CPU's, the placements that differ and both
+               plans' objective, and for the float synthetic problems the
+               idle share of one warm plan under torch.profiler (device
+               trace only).  On the float fan-in problem the sparse move
+               score is evaluated 8 times at the plan's state, with the
+               planner's segment sum and with plain index_add_, and the
+               distinct bit patterns of each are printed.  Fails when the
+               two card runs differ, the planner's move score is not
+               bitwise repeatable, a card plan breaks capacity, or card
+               and CPU decide differently on boutique or a dyadic
+               problem.
 
 Then one line with each phase's seconds, one line {"kernels": [...]}, the
 nvidia-smi line, and last
@@ -532,6 +540,8 @@ def phase_parity(cfg, prompt_lens) -> None:
 PLANNER_PROFILES = ("green", "baseline", "oracle")
 PLANNER_LS_ROUNDS = 2          # benchmarks/scheduler_scalability.py's rounds
 PLANNER_B = 8
+PLANNER_LINKS = 8              # links per service of the fan-in problems
+SEGMENT_SUM_RUNS = 8
 
 
 def _timed_plan(sched, problem, cuda: bool):
@@ -588,12 +598,51 @@ def _capacity_ok(app, infra, result) -> bool:
     return True
 
 
-def _plan_case(case, problem, make_cfg, inputs, exact, profile_it) -> dict:
+def _segment_sum_patterns(problem, result) -> dict:
+    """Distinct bit patterns of the sparse move score, evaluated
+    SEGMENT_SUM_RUNS times on the card at the plan's state: with the
+    planner's segment sum, and with plain ``index_add_`` (float64
+    atomics) in its place."""
+    import hashlib
+    from unittest import mock
+
+    import torch
+
+    from repro_torch.core import scheduler as sched
+
+    low, dev = problem.lowering, torch.device("cuda")
+    esrc, ef, edst, ek = (torch.tensor(a, device=dev)
+                          for a in low.comm.planner_args())
+    static = torch.zeros((1, low.S, low.F, low.N), dtype=torch.float64,
+                         device=dev)
+    state = [torch.tensor(a, device=dev)
+             for a in (result.placed, result.fcur, result.ncur)]
+
+    def patterns() -> int:
+        seen = set()
+        for _ in range(SEGMENT_SUM_RUNS):
+            score, _ = sched._sparse_move_score(static, esrc, ef, edst,
+                                                ek[None], *state)
+            seen.add(hashlib.sha256(score.cpu().numpy().tobytes()).digest())
+        return len(seen)
+
+    def atomic(size, index, values):
+        return torch.zeros(size, dtype=values.dtype,
+                           device=values.device).index_add_(0, index, values)
+
+    ours = patterns()
+    with mock.patch.object(sched, "_segment_sum", atomic):
+        atomics = patterns()
+    return {"planner": ours, "index_add": atomics}
+
+
+def _plan_case(case, problem, make_cfg, inputs, exact, profile_it,
+               segment_sums=False) -> dict:
     """Plan one problem twice on the card and once on the CPU with the
     port; check the card's decisions against the CPU's (``exact``: any
     difference fails) and against capacity; time the warm card call."""
     from repro_torch.core.scheduler import GreenScheduler, reference_objective
-    from repro_torch.launch.profile_serve import profile_window
+    from repro_torch.obs.profile import profile_window
 
     app, infra, comp, comm, cs = inputs
     card = GreenScheduler(make_cfg(), device="cuda")
@@ -628,15 +677,22 @@ def _plan_case(case, problem, make_cfg, inputs, exact, profile_it) -> dict:
         checks=checks)
     if profile_it:
         t0 = time.perf_counter()
-        prof = profile_window(case, lambda: card.plan(problem), 6,
-                              host_ops=False)
+        prof = profile_window(case, lambda: card.plan(problem), 6)
         row.update(profiled_wall_ms=prof["wall_ms"],
                    device_kernel_ms=prof["kernel_ms"],
                    idle_share=prof["idle_share"], launches=prof["launches"],
                    top_kernels=prof["top"],
                    profile_s=time.perf_counter() - t0)
+    if segment_sums:
+        # the same check at the move score's bits, and what plain
+        # index_add_ gives there (printed, not gated)
+        bits = _segment_sum_patterns(problem, result)
+        row["move_score_bit_patterns"] = bits
+        checks["move_score_runs_equal"] = bits["planner"] == 1
     emit("planner", **row)
     must_hold = ["capacity_ok", "card_runs_equal"]
+    if segment_sums:
+        must_hold.append("move_score_runs_equal")
     if exact:
         must_hold.append("card_equals_cpu")
     if not all(checks[k] for k in must_hold):
@@ -653,9 +709,15 @@ def phase_planner() -> list:
     benchmark's synthetic problems run at its sizes: synth(500, 200)
     dense at B=1 and B=8 (ci scaled per branch from the seed, an
     emission-weighted profile so the branches differ) and synth(2000,
-    200) sparse; each also with every float input rounded to a multiple
-    of 2**-8, where every sum is exact in any order.  The card must
-    decide exactly as the CPU on boutique and the dyadic problems."""
+    200) sparse.  These give each service one link, so each of the
+    planner's communication sums has at most one non-zero term; the
+    fan-in problems give each service PLANNER_LINKS links (four per
+    (service, flavour), eight into each service).  Their dyadic twins
+    (``to_dyadic``: every sum exact in any order) and their float
+    versions run at the same shapes and backends; on the sparse float
+    one the move score's bits are also compared over repeated
+    evaluations.  The card must decide exactly as the CPU on boutique
+    and the dyadic problems, and as itself everywhere."""
     import numpy as np
 
     from repro_torch.configs import boutique
@@ -684,15 +746,19 @@ def phase_planner() -> list:
 
     scale = np.random.default_rng(0).integers(4, 13, size=(PLANNER_B, 1)) / 8.0
     scale[0] = 1.0                  # branch 0 is the unscaled problem
+    fanin = f"_fanin{PLANNER_LINKS}"
     for S, backend in ((500, "dense"), (2000, "sparse")):
-        base = synth(S, 200)
-        for dyadic in (False, True):
-            inputs = to_dyadic(base) if dyadic else base
+        variants = [("", synth(S, 200), False),
+                    (fanin + "_dyadic",
+                     to_dyadic(synth(S, 200, links=PLANNER_LINKS)), True),
+                    (fanin, synth(S, 200, links=PLANNER_LINKS), False)]
+        for suffix, inputs, dyadic in variants:
             problem = PlacementProblem.build(*inputs, backend=backend)
-            tag = f"synth{S}_{backend}" + ("_dyadic" if dyadic else "")
+            tag = f"synth{S}_{backend}{suffix}"
             rows.append(_plan_case(
                 tag, problem, lambda: rounds(SchedulerConfig.green()),
-                inputs, exact=dyadic, profile_it=not dyadic))
+                inputs, exact=dyadic, profile_it=not dyadic,
+                segment_sums=suffix == fanin and backend == "sparse"))
             if backend == "dense":
                 batch = problem.with_scenarios(ScenarioBatch(
                     ci=problem.lowering.ci[None, :] * scale))
@@ -701,7 +767,6 @@ def phase_planner() -> list:
                     lambda: rounds(SchedulerConfig(emission_weight=0.25)),
                     inputs, exact=dyadic, profile_it=not dyadic))
     return rows
-
 
 
 def main() -> int:

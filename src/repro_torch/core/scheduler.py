@@ -47,7 +47,6 @@ Three standard profiles:
 from __future__ import annotations
 
 import time
-import warnings
 from dataclasses import dataclass, field
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
@@ -94,15 +93,6 @@ class SchedulerConfig:
     # phantom entries, so every shape in a bucket shares one planner
     # signature (None = exact shapes, one signature per shape).
     bucket: Optional[BucketSpec] = None
-    # Deprecated and ignored (kept so old configs keep constructing).
-    use_jax: bool = False
-
-    def __post_init__(self) -> None:
-        if self.use_jax:
-            warnings.warn(
-                "SchedulerConfig.use_jax is deprecated and ignored: the "
-                "planner has one path",
-                DeprecationWarning, stacklevel=3)
 
     @classmethod
     def baseline(cls) -> "SchedulerConfig":

@@ -4,22 +4,22 @@
 
 Builds ``ServeEngine`` (bf16, seeded random weights, 4 slots), warms it
 up, then traces one admission (a B=1 prefill of 1024 tokens) and 8 decode
-ticks of the full pool with ``torch.profiler``.  For each window it prints one JSON line: the
-host-clock wall time, the summed time of the device kernels, the device's
-idle share (1 - kernel time / wall time; one stream, so kernels do not
-overlap), the kernel launches, and the kernels that took the most time.
+ticks of the full pool with ``torch.profiler``, tracing the device only
+(``repro_torch.obs.profile.profile_window``).  For each window it prints
+one JSON line: the host-clock wall time, the summed time of the device
+kernels, the device's idle share (1 - kernel time / wall time; one stream,
+so kernels do not overlap), the kernel launches, and the kernels that took
+the most time.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import subprocess
-import time
 from typing import Optional
 
 import numpy as np
 import torch
-from torch.profiler import ProfilerActivity, profile
 
 from repro_torch import resolve_device
 from repro_torch.configs.registry import ARCHS, get_arch
@@ -27,38 +27,8 @@ from repro_torch.models.config import CellTuning
 from repro_torch.models.schema import build_schema
 from repro_torch.models.sharding import init_from_schema
 from repro_torch.models.testing import reduced
+from repro_torch.obs.profile import profile_window
 from repro_torch.serve import Request, ServeEngine
-
-
-def profile_window(name: str, fn, top: int, host_ops: bool = True) -> dict:
-    """Trace ``fn()`` once with ``torch.profiler``: its host-clock wall
-    time (to a synchronize), the summed device kernel time, the idle
-    share, the launches and the ``top`` kernels by time.  ``host_ops=False``
-    traces the device alone: a window of a few hundred thousand launches
-    is then cheaper to summarize, and the host's tracing does not stretch
-    the wall time."""
-    activities = [ProfilerActivity.CUDA]
-    if host_ops:
-        activities.append(ProfilerActivity.CPU)
-    torch.cuda.synchronize()
-    with profile(activities=activities) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in kernels)
-    kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
-    return {
-        "window": name,
-        "wall_ms": 1e3 * wall,
-        "kernel_ms": busy_us / 1e3,
-        "idle_share": 1.0 - busy_us / 1e6 / wall if wall > 0 else None,
-        "launches": sum(e.count for e in kernels),
-        "top": [{"kernel": e.key[:80], "count": e.count,
-                 "ms": e.self_device_time_total / 1e3} for e in kernels[:top]],
-    }
 
 
 def main(argv: Optional[list] = None) -> None:

@@ -1,5 +1,6 @@
 """Observability: the metrics registry the planner and the pipeline write
-to (the rest of the JAX package's ``obs`` is not ported yet)."""
+to, and ``profile.profile_window``, the device trace of one window of work
+(the rest of the JAX package's ``obs`` is not ported yet)."""
 from .registry import (  # noqa: F401
     DEFAULT_BUCKETS,
     HistogramData,

@@ -289,7 +289,9 @@ def test_planner_card_decides_as_cpu_on_dyadic_synth(card, backend, S, N, B):
     from repro_torch.core.problem import PlacementProblem
     from repro_torch.core.scheduler import SchedulerConfig
 
-    problem = PlacementProblem.build(*to_dyadic(synth(S, N)), backend=backend)
+    # four links per service: several terms in each communication sum
+    problem = PlacementProblem.build(*to_dyadic(synth(S, N, links=4)),
+                                     backend=backend)
     if B > 1:
         scale = np.arange(4, 4 + B)[:, None] / 4.0
         problem = problem.with_scenarios(
@@ -302,13 +304,20 @@ def test_planner_card_decides_as_cpu_on_dyadic_synth(card, backend, S, N, B):
 
 def test_planner_sparse_card_runs_are_bitwise_equal(card):
     """The sparse segment sums add in one order on the card, so repeated
-    runs of the planner give the same bits (float inputs, B=2)."""
+    runs of the planner give the same decisions and its move score the
+    same bits (float inputs with fan-in: four links per (service,
+    flavour), eight into each service; B=2)."""
     from repro_torch.configs.synth import synth
     from repro_torch.core.lowering import ScenarioBatch
     from repro_torch.core.problem import PlacementProblem
-    from repro_torch.core.scheduler import GreenScheduler, SchedulerConfig
+    from repro_torch.core.scheduler import (
+        GreenScheduler,
+        SchedulerConfig,
+        _sparse_move_score,
+    )
 
-    problem = PlacementProblem.build(*synth(500, 100), backend="sparse")
+    problem = PlacementProblem.build(*synth(500, 100, links=8),
+                                     backend="sparse")
     problem = problem.with_scenarios(ScenarioBatch(
         ci=problem.lowering.ci[None, :] * np.array([[1.0], [0.7]])))
     sched = GreenScheduler(SchedulerConfig(emission_weight=0.3,
@@ -316,3 +325,17 @@ def test_planner_sparse_card_runs_are_bitwise_equal(card):
     first = sched.plan(problem)
     for _ in range(2):
         _assert_same_plans(sched.plan(problem), first)
+
+    low = problem.lowering
+    esrc, ef, edst, ek = (torch.tensor(a, device=card)
+                          for a in low.comm.planner_args())
+    w = ek[None] * torch.tensor([[1.0], [0.7]], dtype=torch.float64,
+                                device=card)
+    static = torch.zeros((2, low.S, low.F, low.N), dtype=torch.float64,
+                         device=card)
+    state = [torch.tensor(a, device=card)
+             for a in (first.placed, first.fcur, first.ncur)]
+    want = _sparse_move_score(static, esrc, ef, edst, w, *state)[0]
+    for _ in range(4):
+        got = _sparse_move_score(static, esrc, ef, edst, w, *state)[0]
+        assert torch.equal(got.view(torch.int64), want.view(torch.int64))

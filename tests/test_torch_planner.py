@@ -54,31 +54,42 @@ from test_sparse_lowering import synth_dyadic
 # ---------------------------------------------------------------------------
 
 
-def _twin_class(cls):
+def _twin_class(cls, source, target):
     module = cls.__module__
-    assert module == "repro" or module.startswith("repro."), module
-    port = importlib.import_module("repro_torch" + module[len("repro"):])
-    return getattr(port, cls.__name__)
+    assert module == source or module.startswith(source + "."), module
+    twin = importlib.import_module(target + module[len(source):])
+    return getattr(twin, cls.__name__)
+
+
+def _carry(obj, source, target):
+    if isinstance(obj, enum.Enum):
+        return _twin_class(type(obj), source, target)[obj.name]
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        cls = _twin_class(type(obj), source, target)
+        return cls(**{f.name: _carry(getattr(obj, f.name), source, target)
+                      for f in dataclasses.fields(obj) if f.init})
+    if isinstance(obj, tuple):
+        return tuple(_carry(x, source, target) for x in obj)
+    if isinstance(obj, list):
+        return [_carry(x, source, target) for x in obj]
+    if isinstance(obj, dict):
+        return {_carry(k, source, target): _carry(v, source, target)
+                for k, v in obj.items()}
+    if isinstance(obj, np.ndarray):
+        return obj.copy()
+    return obj
 
 
 def to_port(obj):
     """Rebuild a ``repro`` object (types, lowerings, problems, plans) as its
     ``repro_torch`` twin, field by field; arrays are copied as they are."""
-    if isinstance(obj, enum.Enum):
-        return _twin_class(type(obj))[obj.name]
-    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
-        cls = _twin_class(type(obj))
-        return cls(**{f.name: to_port(getattr(obj, f.name))
-                      for f in dataclasses.fields(obj) if f.init})
-    if isinstance(obj, tuple):
-        return tuple(to_port(x) for x in obj)
-    if isinstance(obj, list):
-        return [to_port(x) for x in obj]
-    if isinstance(obj, dict):
-        return {to_port(k): to_port(v) for k, v in obj.items()}
-    if isinstance(obj, np.ndarray):
-        return obj.copy()
-    return obj
+    return _carry(obj, "repro", "repro_torch")
+
+
+def to_ref(obj):
+    """Rebuild a ``repro_torch`` object as its ``repro`` twin (the inverse
+    of :func:`to_port`), for problems only the port's generators make."""
+    return _carry(obj, "repro_torch", "repro")
 
 
 @pytest.fixture(autouse=True)
@@ -208,6 +219,22 @@ def test_port_synth_is_the_benchmark_generator():
     grid += list(comp.values()) + list(comm.values())
     grid += [c.weight for c in cs] + [c.memory_weight for c in cs]
     assert all((v * 256).is_integer() for v in grid)
+    carbon = [n.carbon for n in infra.nodes]
+    assert (sum(carbon) / len(carbon) * 256).is_integer()
+
+
+@pytest.mark.parametrize("S,links", [(50, 4), (2000, 8)])
+def test_port_synth_fan_in(S, links):
+    """``links=k``: k links out of every service, k/F out of every
+    (service, flavour) and k into every service, none to itself."""
+    from collections import Counter
+
+    _, _, _, comm, _ = port_synth.synth(S, 20, links=links)
+    assert len(comm) == S * links
+    assert all(src != dst for src, _, dst in comm)
+    assert set(Counter((src, f) for src, f, _ in comm).values()) \
+        == {links // port_synth.FLAVOURS}
+    assert set(Counter(dst for _, _, dst in comm).values()) == {links}
 
 
 # ---------------------------------------------------------------------------
@@ -296,6 +323,16 @@ CASE_SETS = (
     + [(f"bench{S}x{N}", lambda S=S, N=N: synth_bench(S, N),
         ("green", "oracle"), {"local_search_rounds": 2})
        for S, N in ((50, 25), (200, 100))]
+    # the port's generator with fan-in (four links per service), float and
+    # dyadic: several terms in every communication sum
+    + [(f"fanin{S}x{N}", lambda S=S, N=N: to_ref(
+        port_synth.synth(S, N, links=4)),
+        ("green", "mixed", "oracle"), {"local_search_rounds": 2})
+       for S, N in ((50, 25), (200, 100))]
+    + [(f"fanin_dyadic{S}x{N}", lambda S=S, N=N: to_ref(
+        port_synth.to_dyadic(port_synth.synth(S, N, links=4))),
+        DYADIC_PROFILES, {"local_search_rounds": 2})
+       for S, N in ((50, 25), (200, 100))]
 )
 CASES = {name: (build, over) for name, build, _, over in CASE_SETS}
 DECISION_PARAMS = [(name, backend, profile)
@@ -318,7 +355,7 @@ def test_planner_decisions_match(case, backend, profile):
 
 
 SCENARIO_CASES = ["dyadic0", "dyadic3", "random2", "boutique1",
-                  "bench50x25", "bench200x100"]
+                  "bench50x25", "bench200x100", "fanin_dyadic50x25"]
 
 
 @pytest.mark.parametrize("backend", BACKENDS)
