@@ -40,13 +40,15 @@ Phases, each printing one JSON line:
                same shapes with 8 links per service, with dyadic inputs
                (every sum exact in any order) and with float inputs.
                Each problem is
-               planned twice on the card and once on the CPU; per problem
+               planned twice on the card and once on the CPU (the float
+               fan-in problems, which repeat their dyadic twins' shapes,
+               on the card only); per problem
                one line with S, F, N, L, B, backend, greedy and
                local-search steps, the warm (second) card plan's wall ms
                beside the CPU's, the placements that differ and both
-               plans' objective, and for the float synthetic problems the
-               idle share of one warm plan under torch.profiler (device
-               trace only).  On the float fan-in problem the sparse move
+               plans' objective, and for the float synthetic problems
+               (of the sparse ones, the fan-in one) the idle share of one
+               warm plan under torch.profiler (device trace only).  On the float fan-in problem the sparse move
                score is evaluated 8 times at the plan's state, with the
                planner's segment sum and with plain index_add_, and the
                distinct bit patterns of each are printed.  Fails when the
@@ -54,6 +56,29 @@ Phases, each printing one JSON line:
                bitwise repeatable, a card plan breaks capacity, or card
                and CPU decide differently on boutique or a dyadic
                problem.
+  8. continuum — the adaptive loop (ContinuumRuntime.run: pipeline.run ->
+               problem_for -> fault masking -> WhatIfPlanner.evaluate over
+               B forecast branches -> hysteresis switch -> accounting) on
+               the card and on the CPU with the same inputs: (a) the
+               continuum benchmark's paper-scale week (12 services, 6
+               nodes over solar-south, wind-north and coal-east, 168
+               ticks) under the adaptive, static and oracle policies;
+               (b) the same week under a seeded fault trace (3 outages,
+               a zone blackout, a telemetry dropout, a workload spike, a
+               capacity derate) with an Observability bundle and an
+               observe-mode Watchtower attached; (c) the benchmark's
+               delta-replanning scale, 96 services on 48 nodes, B=4, 24
+               ticks.  Per run one line: ticks, replans, switches,
+               migrations, evictions, emergencies, violations, total
+               emissions, the p50 and p95 of each tick's wall ms and of
+               its replan ms on the card and on the CPU, the ticks whose
+               records differ; then one more warm tick on the card under
+               torch.profiler (device trace only): kernel ms, launches,
+               idle share.  Fails when a non-timing TickRecord field or
+               the final assignment differs between card and CPU, when
+               (b) records a placement violation, when (b)'s ledger does
+               not sum bit-equal to its records, or when (b)'s alerts
+               differ between card and CPU.
 
 Then one line with each phase's seconds, one line {"kernels": [...]}, the
 nvidia-smi line, and last
@@ -637,10 +662,11 @@ def _segment_sum_patterns(problem, result) -> dict:
 
 
 def _plan_case(case, problem, make_cfg, inputs, exact, profile_it,
-               segment_sums=False) -> dict:
-    """Plan one problem twice on the card and once on the CPU with the
-    port; check the card's decisions against the CPU's (``exact``: any
-    difference fails) and against capacity; time the warm card call."""
+               segment_sums=False, cpu_twin=True) -> dict:
+    """Plan one problem twice on the card and (``cpu_twin``) once on the
+    CPU with the port; check the card's decisions against the CPU's
+    (``exact``: any difference fails) and against capacity; time the warm
+    card call."""
     from repro_torch.core.scheduler import GreenScheduler, reference_objective
     from repro_torch.obs.profile import profile_window
 
@@ -649,7 +675,8 @@ def _plan_case(case, problem, make_cfg, inputs, exact, profile_it,
     first, cold_ms = _timed_plan(card, problem, True)
     result, warm_ms = _timed_plan(card, problem, True)
     on_cpu, cpu_ms = _timed_plan(
-        GreenScheduler(make_cfg(), device="cpu"), problem, False)
+        GreenScheduler(make_cfg(), device="cpu"), problem, False) \
+        if cpu_twin else (None, None)
     st, low = result.stats, problem.lowering
 
     def objective(r):
@@ -657,23 +684,27 @@ def _plan_case(case, problem, make_cfg, inputs, exact, profile_it,
         return reference_objective(app, infra, comp, comm, cs, make_cfg(), a)
 
     checks = {
-        "card_equals_cpu": _decisions(result) == _decisions(on_cpu),
         "card_runs_equal": _decisions(result) == _decisions(first),
         "capacity_ok": _capacity_ok(app, infra, result),
     }
+    if cpu_twin:
+        checks["card_equals_cpu"] = _decisions(result) == _decisions(on_cpu)
     row = dict(
         case=case, S=low.S, F=low.F, N=low.N,
         L=low.comm.n_links if low.comm.kind == "sparse" else None,
         B=result.B, backend=low.comm.kind, exact_inputs=exact,
         greedy_steps=st.greedy_steps,
         local_search_steps=list(st.local_search_steps),
-        local_search_steps_cpu=list(on_cpu.stats.local_search_steps),
+        local_search_steps_cpu=(list(on_cpu.stats.local_search_steps)
+                                if cpu_twin else None),
         cold_ms=cold_ms, warm_ms=warm_ms, cpu_ms=cpu_ms,
         feasible=[p.feasible for p in result.plans],
         emissions_g=[float(e) for e in result.emissions_g],
-        differing_placements=_differing_placements(result, on_cpu),
+        differing_placements=(_differing_placements(result, on_cpu)
+                              if cpu_twin else None),
         objective_card=objective(result) if result.plans[0].feasible else None,
-        objective_cpu=objective(on_cpu) if on_cpu.plans[0].feasible else None,
+        objective_cpu=(objective(on_cpu) if cpu_twin
+                       and on_cpu.plans[0].feasible else None),
         checks=checks)
     if profile_it:
         t0 = time.perf_counter()
@@ -755,17 +786,210 @@ def phase_planner() -> list:
         for suffix, inputs, dyadic in variants:
             problem = PlacementProblem.build(*inputs, backend=backend)
             tag = f"synth{S}_{backend}{suffix}"
+            # the float fan-in problem repeats its dyadic twin's shape:
+            # the twin's CPU plan stands for both, so it is planned on the
+            # card only; of the sparse problems only the fan-in one is
+            # profiled (a profile of ~300k launches takes over a minute)
             rows.append(_plan_case(
                 tag, problem, lambda: rounds(SchedulerConfig.green()),
-                inputs, exact=dyadic, profile_it=not dyadic,
-                segment_sums=suffix == fanin and backend == "sparse"))
+                inputs, exact=dyadic,
+                profile_it=not dyadic and (backend == "dense"
+                                           or suffix == fanin),
+                segment_sums=suffix == fanin and backend == "sparse",
+                cpu_twin=suffix != fanin))
             if backend == "dense":
                 batch = problem.with_scenarios(ScenarioBatch(
                     ci=problem.lowering.ci[None, :] * scale))
                 rows.append(_plan_case(
                     f"{tag}_b{PLANNER_B}", batch,
                     lambda: rounds(SchedulerConfig(emission_weight=0.25)),
-                    inputs, exact=dyadic, profile_it=not dyadic))
+                    inputs, exact=dyadic, profile_it=not dyadic,
+                    cpu_twin=suffix != fanin))
+    return rows
+
+
+# the continuum phase: benchmarks/continuum_loop.py's scenarios, rebuilt
+# here from the port alone
+CONTINUUM_START = 24
+CONTINUUM_WEEK = 168
+CONTINUUM_REGIONS = ("solar-south", "wind-north", "coal-east")
+CONTINUUM_POLICIES = (
+    ("adaptive", dict(scenarios=8, hysteresis_g=30.0)),
+    ("static", dict(replan_every=10 ** 9)),
+    ("oracle", dict(oracle=True, hysteresis_g=0.0, horizon_h=1)),
+)
+CONTINUUM_MID = dict(n_services=96, nodes_per_region=16, B=4, ticks=24)
+TIMING_FIELDS = ("rebuild_s", "replan_s", "constraint_s", "tick_fused_s")
+
+
+def continuum_scenario(n_services=12, nodes_per_region=2,
+                       regions=CONTINUUM_REGIONS):
+    """``benchmarks/continuum_loop.py::build_scenario``: a capacity-tight
+    continuum where the clean capacity moves with the sun."""
+    from repro_torch.core.types import (
+        Application, CommunicationLink, Flavour, FlavourRequirements,
+        Infrastructure, Node, NodeCapabilities, Service)
+
+    services = tuple(
+        Service(f"svc{i}", flavours=(
+            Flavour("large", FlavourRequirements(cpu=2.0, ram_gb=4.0)),
+            Flavour("small", FlavourRequirements(cpu=1.0, ram_gb=2.0)),
+        )) for i in range(n_services))
+    links = tuple(
+        CommunicationLink(f"svc{i}", f"svc{(i + 1) % n_services}")
+        for i in range(0, n_services, 2))
+    app = Application("continuum-bench", services, links)
+    nodes = tuple(
+        Node(f"{region}-{k}", region=region, cost_per_cpu_hour=0.5,
+             capabilities=NodeCapabilities(cpu=5.0, ram_gb=24.0))
+        for region in regions for k in range(nodes_per_region))
+    return app, Infrastructure("continuum-bench", nodes)
+
+
+def continuum_runtime(device, app, infra, ticks, config, observed=False):
+    """A ContinuumRuntime whose pipeline and planner run on ``device``,
+    over the benchmark's seeded traces, with a per-tick wall clock."""
+    from repro_torch.continuum import (
+        REGION_PRESETS, CarbonTrace, ContinuumRuntime, WhatIfPlanner,
+        WorkloadTrace)
+    from repro_torch.core.pipeline import GreenConstraintPipeline
+    from repro_torch.core.scheduler import GreenScheduler, SchedulerConfig
+    from repro_torch.obs import Observability, Watchtower
+
+    rt = ContinuumRuntime(
+        app, infra,
+        CarbonTrace(REGION_PRESETS, hours=CONTINUUM_START + ticks + 25,
+                    seed=0),
+        WorkloadTrace(app, seed=0), config=config,
+        pipeline=GreenConstraintPipeline(device=device),
+        planner=WhatIfPlanner(GreenScheduler(
+            SchedulerConfig(emission_weight=1.0), device=device)),
+        obs=Observability() if observed else None,
+        watch=Watchtower() if observed else None)
+    walls = []
+    tick = rt.tick
+
+    def timed_tick(t):
+        t0 = time.perf_counter()
+        rec = tick(t)           # ends in host values: no sync needed
+        walls.append(1e3 * (time.perf_counter() - t0))
+        return rec
+
+    rt.tick = timed_tick        # ContinuumRuntime.run calls self.tick
+    return rt, walls
+
+
+def _records(result):
+    """Every TickRecord field but the wall-clock timings."""
+    import dataclasses
+
+    return [{k: v for k, v in dataclasses.asdict(r).items()
+             if k not in TIMING_FIELDS} for r in result.ticks]
+
+
+def _percentiles(ms) -> list:
+    import numpy as np
+
+    return [float(np.percentile(ms, 50)), float(np.percentile(ms, 95))]
+
+
+def continuum_case(case, app, infra, ticks, config, observed=False) -> dict:
+    """Run one continuum case on the card and on the CPU; compare."""
+    from repro_torch.obs.profile import profile_window
+
+    runs = []
+    for dev in ("cuda", "cpu"):
+        rt, walls = continuum_runtime(dev, app, infra, ticks, config,
+                                      observed)
+        runs.append((rt, rt.run(CONTINUUM_START, ticks), walls))
+    (rt, res, walls), (rt_c, res_c, walls_c) = runs
+    recs, recs_c = _records(res), _records(res_c)
+    s = res.summary()
+    checks = {
+        "records_equal": recs == recs_c,
+        "final_assignment_equal":
+            res.final_assignment == res_c.final_assignment,
+    }
+    row = dict(
+        case=case, S=len(app.services), N=len(infra.nodes),
+        B=config.scenarios if config.use_whatif and not config.oracle else 1,
+        ticks=len(res.ticks), replans=s["replans"], switches=s["switches"],
+        migrations=s["migrations"], restarts=s["restarts"],
+        evictions=sum(r.evicted for r in res.ticks),
+        emergencies=sum(r.emergency for r in res.ticks),
+        violations=sum(r.violations for r in res.ticks),
+        total_emissions_g=res.total_emissions_g,
+        total_emissions_g_cpu=res_c.total_emissions_g,
+        differing_ticks=[r["t"] for r, rc in zip(recs, recs_c) if r != rc],
+        differing_fields=sorted({k for r, rc in zip(recs, recs_c)
+                                 for k in r if r[k] != rc[k]}),
+        tick_ms_p50_p95=_percentiles(walls),
+        tick_ms_p50_p95_cpu=_percentiles(walls_c),
+        replan_ms_p50_p95=_percentiles(
+            [1e3 * r.replan_s for r in res.ticks]),
+        replan_ms_p50_p95_cpu=_percentiles(
+            [1e3 * r.replan_s for r in res_c.ticks]))
+    if observed:
+        em, mig = rt.obs.ledger.totals()
+        entries = rt.obs.ledger.entries
+        checks["no_violations"] = (rt.placement_violations == []
+                                   and row["violations"] == 0)
+        checks["ledger_equals_records"] = (
+            len(entries) == len(res.ticks)
+            and all(e.emissions_g == r.emissions_g
+                    and e.migration_g == r.migration_g
+                    for e, r in zip(entries, res.ticks))
+            and em == sum(r.emissions_g for r in res.ticks)
+            and mig == sum(r.migration_g for r in res.ticks))
+        sig = [[(a.t, a.name, a.source, a.target, a.zone, a.value)
+                for a in r.watch.alerts] for r in (rt, rt_c)]
+        checks["alerts_equal"] = sig[0] == sig[1]
+        row.update(ledger_total_g=em + mig, alerts=len(sig[0]),
+                   fault_events=[(e.kind, e.target, e.start, e.hours)
+                                 for e in config.faults.events])
+    t_next = CONTINUUM_START + ticks
+    prof = profile_window(case, lambda: rt.tick(t_next), 6)
+    row.update(profiled_tick_wall_ms=prof["wall_ms"],
+               device_kernel_ms=prof["kernel_ms"],
+               idle_share=prof["idle_share"], launches=prof["launches"],
+               top_kernels=prof["top"])
+    row["checks"] = checks
+    emit("continuum", **row)
+    if not all(checks.values()):
+        raise RuntimeError(f"continuum checks failed on {case}: {checks}")
+    return row
+
+
+def phase_continuum() -> list:
+    """The port's adaptive loop on the card, against the port on the CPU.
+
+    (a) the continuum benchmark's paper-scale week under the adaptive,
+    static and oracle policies; (b) the same week under a seeded fault
+    trace with observability and an observe-mode watchtower; (c) the
+    benchmark's delta-replanning scale (96 services on 48 nodes, B=4)."""
+    from repro_torch.continuum import RuntimeConfig
+    from repro_torch.faults import FaultTrace
+
+    rows = []
+    app, infra = continuum_scenario()
+    for policy, kw in CONTINUUM_POLICIES:
+        rows.append(continuum_case(f"week_{policy}", app, infra,
+                                   CONTINUUM_WEEK, RuntimeConfig(**kw)))
+    faults = FaultTrace.generate(
+        [n.node_id for n in infra.nodes], CONTINUUM_REGIONS,
+        ticks=CONTINUUM_START + CONTINUUM_WEEK, seed=0,
+        earliest=CONTINUUM_START, capacity_derates=1)
+    rows.append(continuum_case(
+        "week_faults", app, infra, CONTINUUM_WEEK,
+        RuntimeConfig(scenarios=8, hysteresis_g=30.0, faults=faults,
+                      emergency_replan=True),
+        observed=True))
+    mid = CONTINUUM_MID
+    app, infra = continuum_scenario(mid["n_services"],
+                                    mid["nodes_per_region"])
+    rows.append(continuum_case(
+        f"mid_{mid['n_services']}x{len(infra.nodes)}", app, infra,
+        mid["ticks"], RuntimeConfig(scenarios=mid["B"], hysteresis_g=30.0)))
     return rows
 
 
@@ -804,6 +1028,7 @@ def main() -> int:
         timed(f"parity {arch}", phase_parity, cfg, prompt_lens)
         torch.cuda.empty_cache()
     timed("planner", phase_planner)
+    timed("continuum", phase_continuum)
     emit("seconds", **seconds)
 
     entries = []

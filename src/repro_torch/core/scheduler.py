@@ -392,18 +392,21 @@ def plan_branches(kind: str, ci, ci_mean, E, order, w_placed, w_fcur,
 
 
 # ---------------------------------------------------------------------------
-# Planner compile cache: one entry per (backend kind, padded program shape),
-# the signatures under which the JAX package compiles its programs.  The
-# torch planner compiles nothing; it keeps the same keys and hit/miss
-# accounting so PlanResult.stats and the registry read the same.
+# Planner compile cache: one entry per (device type, backend kind, padded
+# program shape); the last two are the signature under which the JAX
+# package compiles its programs.  The torch planner compiles nothing; it
+# keeps the same hit/miss accounting so PlanResult.stats and the registry
+# read the same, per device, so a plan on the card and its twin on the CPU
+# account alike.
 # ---------------------------------------------------------------------------
 
 
 class PlannerCompileCache:
     """Counters over the planner's program signatures.
 
-    A *miss* is a signature this process has never planned before (the
-    first call of a padded shape); every later call of it is a *hit*.
+    A *miss* is a signature this process has never planned on that device
+    type before (the first call of a padded shape on the card, or on the
+    CPU); every later call of it there is a *hit*.
     Nothing is compiled: a miss's ``compile_time_s`` is that first call's
     plan time.  ``reset_counters()`` zeroes the windowed counters but
     keeps the signature registry: replanning a known shape after a reset
@@ -729,7 +732,7 @@ class GreenScheduler:
                 out.placed, out.fcur, out.ncur, out.skipped, out.infeas,
                 out.fail_s, out.ls_steps))
         plan_time_s = time.perf_counter() - t0
-        compiled = COMPILE_CACHE.record(sig, plan_time_s)
+        compiled = COMPILE_CACHE.record((dev.type,) + sig, plan_time_s)
         cc = COMPILE_CACHE
         stats = PlanStats(
             backend=plow.comm.kind, shape=shape, padded_shape=padded_shape,

@@ -339,3 +339,56 @@ def test_planner_sparse_card_runs_are_bitwise_equal(card):
     for _ in range(4):
         got = _sparse_move_score(static, esrc, ef, edst, w, *state)[0]
         assert torch.equal(got.view(torch.int64), want.view(torch.int64))
+
+
+def _continuum_run(device, ticks):
+    """chip_smoke.py's paper-scale continuum week (the continuum
+    benchmark's scenario), adaptive policy, on ``device``."""
+    from repro_torch.continuum import (
+        REGION_PRESETS, CarbonTrace, ContinuumRuntime, RuntimeConfig,
+        WhatIfPlanner, WorkloadTrace)
+    from repro_torch.core.pipeline import GreenConstraintPipeline
+    from repro_torch.core.scheduler import GreenScheduler, SchedulerConfig
+    from repro_torch.core.types import (
+        Application, CommunicationLink, Flavour, FlavourRequirements,
+        Infrastructure, Node, NodeCapabilities, Service)
+
+    services = tuple(Service(f"svc{i}", flavours=(
+        Flavour("large", FlavourRequirements(cpu=2.0, ram_gb=4.0)),
+        Flavour("small", FlavourRequirements(cpu=1.0, ram_gb=2.0))))
+        for i in range(12))
+    links = tuple(CommunicationLink(f"svc{i}", f"svc{(i + 1) % 12}")
+                  for i in range(0, 12, 2))
+    app = Application("continuum-bench", services, links)
+    infra = Infrastructure("continuum-bench", tuple(
+        Node(f"{r}-{k}", region=r, cost_per_cpu_hour=0.5,
+             capabilities=NodeCapabilities(cpu=5.0, ram_gb=24.0))
+        for r in ("solar-south", "wind-north", "coal-east")
+        for k in range(2)))
+    runtime = ContinuumRuntime(
+        app, infra, CarbonTrace(REGION_PRESETS, hours=24 + ticks + 25,
+                                seed=0),
+        WorkloadTrace(app, seed=0),
+        config=RuntimeConfig(scenarios=8, hysteresis_g=30.0),
+        pipeline=GreenConstraintPipeline(device=device),
+        planner=WhatIfPlanner(GreenScheduler(
+            SchedulerConfig(emission_weight=1.0), device=device)))
+    result = runtime.run(24, ticks)
+    assert runtime.last_result.plan_stats.device.startswith(device)
+    return result
+
+
+def test_continuum_card_decides_as_cpu(card):
+    """Every TickRecord field but the wall-clock timings, and the final
+    assignment, equal on the card and on the CPU over 24 ticks."""
+    import dataclasses
+
+    timing = ("rebuild_s", "replan_s", "constraint_s", "tick_fused_s")
+
+    def records(result):
+        return [{k: v for k, v in dataclasses.asdict(r).items()
+                 if k not in timing} for r in result.ticks]
+
+    on_card, on_cpu = _continuum_run("cuda", 24), _continuum_run("cpu", 24)
+    assert records(on_card) == records(on_cpu)
+    assert on_card.final_assignment == on_cpu.final_assignment

@@ -32,7 +32,8 @@ def test_port_file_imports_no_jax_nor_repro(path):
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch.serve, repro_torch.launch.serve, "
             "repro_torch.core.pipeline, repro_torch.core.scheduler, "
-            "repro_torch.learn, repro_torch.obs, repro_torch.configs.synth; "
+            "repro_torch.learn, repro_torch.obs, repro_torch.configs.synth, "
+            "repro_torch.continuum, repro_torch.faults; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(SRC))
@@ -57,3 +58,22 @@ def test_serve_cli_without_a_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         main(["--arch", "qwen2-1.5b"])
+
+
+def test_default_continuum_runtime_without_a_card_raises(monkeypatch):
+    from repro_torch.continuum import (
+        REGION_PRESETS, CarbonTrace, ContinuumRuntime, WorkloadTrace)
+    from repro_torch.core.types import (
+        Application, Flavour, FlavourRequirements, Infrastructure, Node,
+        NodeCapabilities, Service)
+
+    app = Application("t", (Service("svc", flavours=(
+        Flavour("f", FlavourRequirements(cpu=1.0)),)),))
+    infra = Infrastructure("t", (Node(
+        "n", region="wind-north", capabilities=NodeCapabilities(cpu=4.0)),))
+    runtime = ContinuumRuntime(app, infra,
+                               CarbonTrace(REGION_PRESETS, hours=60),
+                               WorkloadTrace(app))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        runtime.run(24, 1)
