@@ -46,9 +46,10 @@ Phases, each printing one JSON line:
                one line with S, F, N, L, B, backend, greedy and
                local-search steps, the warm (second) card plan's wall ms
                beside the CPU's, the placements that differ and both
-               plans' objective, and for the float synthetic problems
-               (of the sparse ones, the fan-in one) the idle share of one
-               warm plan under torch.profiler (device trace only).  On the float fan-in problem the sparse move
+               plans' objective, and for the float dense synthetic
+               problems the idle share of one warm plan under
+               torch.profiler (device trace only).  On the float fan-in
+               problem the sparse move
                score is evaluated 8 times at the plan's state, with the
                planner's segment sum and with plain index_add_, and the
                distinct bit patterns of each are printed.  Fails when the
@@ -68,17 +69,44 @@ Phases, each printing one JSON line:
                capacity derate) with an Observability bundle and an
                observe-mode Watchtower attached; (c) the benchmark's
                delta-replanning scale, 96 services on 48 nodes, B=4, 24
-               ticks.  Per run one line: ticks, replans, switches,
-               migrations, evictions, emergencies, violations, total
-               emissions, the p50 and p95 of each tick's wall ms and of
-               its replan ms on the card and on the CPU, the ticks whose
-               records differ; then one more warm tick on the card under
-               torch.profiler (device trace only): kernel ms, launches,
-               idle share.  Fails when a non-timing TickRecord field or
-               the final assignment differs between card and CPU, when
-               (b) records a placement violation, when (b)'s ledger does
-               not sum bit-equal to its records, or when (b)'s alerts
-               differ between card and CPU.
+               ticks; the fan-in week: (a)'s adaptive week with 8 links
+               into each service.  Per run one line: ticks, replans,
+               switches, migrations, evictions, emergencies, violations,
+               total emissions, the p50 and p95 of each tick's wall ms
+               and of its replan ms on the card and on the CPU, the ticks
+               whose records differ; then one more warm tick on the card
+               under torch.profiler (device trace only): kernel ms,
+               launches, idle share.  Fails when a non-timing TickRecord
+               field or the final assignment differs between card and
+               CPU, when (b) records a placement violation, when (b)'s
+               ledger does not sum bit-equal to its records, or when
+               (b)'s alerts differ between card and CPU.
+  9. replay  — the fused trace replay (ContinuumRuntime.run_scanned: the
+               trace staged on the host once, the decision tick rolled on
+               the device) on the card and on the CPU: (d) (a)'s week
+               under the adaptive and oracle policies; (e) the faulty week
+               without the capacity derate (which the replay does not
+               stage), observed, against an eager run of the same; and
+               with it, on the CPU, which must fall back to the eager
+               loop (FAULT_CAPACITY_DERATE) and equal (b); (f)
+               monte_carlo_emissions over the adaptive week under 8 carbon
+               scales (64 planner branches a tick), beside (d)'s adaptive
+               replay for the marginal ms per reality per tick; (g) (c)'s
+               mid-size; (h) the continuum benchmark's at-scale point in
+               its smoke size, 300 services x 60 nodes, B=4, 4 ticks, on
+               the card only; the fan-in week.  Per run one line: stage,
+               scan and commit seconds, the scan's ms per tick beside the
+               eager tick's, the ticks that differ from the eager run and
+               between card and CPU, and a profile of a warm replay of
+               its first ticks on the card (device trace only): launches
+               per tick, kernel ms, idle share.  Fails when a replay falls
+               back where it should not (or does not where it should),
+               when a non-timing TickRecord field (``compiles`` aside: the
+               replay books its own signature) or the final assignment
+               differs from the eager run, when card and CPU differ, when
+               (e)'s ledger or alerts differ from the eager run's, or when
+               (f)'s totals differ card vs CPU, or at scale 1.0 from (a)'s
+               adaptive week, by more than rel 1e-12.
 
 Then one line with each phase's seconds, one line {"kernels": [...]}, the
 nvidia-smi line, and last
@@ -788,13 +816,12 @@ def phase_planner() -> list:
             tag = f"synth{S}_{backend}{suffix}"
             # the float fan-in problem repeats its dyadic twin's shape:
             # the twin's CPU plan stands for both, so it is planned on the
-            # card only; of the sparse problems only the fan-in one is
-            # profiled (a profile of ~300k launches takes over a minute)
+            # card only; only the dense problems are profiled (a sparse
+            # plan's profile, ~300k launches, takes over a minute)
             rows.append(_plan_case(
                 tag, problem, lambda: rounds(SchedulerConfig.green()),
                 inputs, exact=dyadic,
-                profile_it=not dyadic and (backend == "dense"
-                                           or suffix == fanin),
+                profile_it=not dyadic and backend == "dense",
                 segment_sums=suffix == fanin and backend == "sparse",
                 cpu_twin=suffix != fanin))
             if backend == "dense":
@@ -819,26 +846,42 @@ CONTINUUM_POLICIES = (
     ("oracle", dict(oracle=True, hysteresis_g=0.0, horizon_h=1)),
 )
 CONTINUUM_MID = dict(n_services=96, nodes_per_region=16, B=4, ticks=24)
+# benchmarks/continuum_loop.py::time_megaloop's at-scale point, --smoke size
+CONTINUUM_AT_SCALE = dict(n_services=300, nodes_per_region=20, B=4, ticks=4)
+CONTINUUM_FAN_IN = 8           # links into each service of the fan-in week
+MC_SCALES = [1.0, 0.8, 0.9, 1.1, 1.2, 1.3, 0.7, 1.5]
+REPLAY_PROFILE_TICKS = 4       # ticks of the profiled warm replay
 TIMING_FIELDS = ("rebuild_s", "replan_s", "constraint_s", "tick_fused_s")
 
 
 def continuum_scenario(n_services=12, nodes_per_region=2,
-                       regions=CONTINUUM_REGIONS):
+                       regions=CONTINUUM_REGIONS, links=None):
     """``benchmarks/continuum_loop.py::build_scenario``: a capacity-tight
-    continuum where the clean capacity moves with the sun."""
+    continuum where the clean capacity moves with the sun.  With
+    ``links``, ``configs/synth.py``'s fan-in instead of its ring: link j
+    (1..links) of service i goes to service ``i + 1 + (j - 1) * (S //
+    links)`` (mod S), so every service has ``links`` links in and out;
+    and "small" ranks first, so that the traffic the workload trace draws
+    from each service's first flavour leaves the flavour the planner
+    runs and the communication sums decide placements."""
     from repro_torch.core.types import (
         Application, CommunicationLink, Flavour, FlavourRequirements,
         Infrastructure, Node, NodeCapabilities, Service)
 
+    order = ("small", "large") if links else ()
     services = tuple(
         Service(f"svc{i}", flavours=(
             Flavour("large", FlavourRequirements(cpu=2.0, ram_gb=4.0)),
             Flavour("small", FlavourRequirements(cpu=1.0, ram_gb=2.0)),
-        )) for i in range(n_services))
-    links = tuple(
-        CommunicationLink(f"svc{i}", f"svc{(i + 1) % n_services}")
-        for i in range(0, n_services, 2))
-    app = Application("continuum-bench", services, links)
+        ), flavours_order=order) for i in range(n_services))
+    if links is None:
+        edges = [(i, (i + 1) % n_services) for i in range(0, n_services, 2)]
+    else:
+        step = n_services // links
+        edges = [(i, (i + 1 + (j - 1) * step) % n_services)
+                 for i in range(n_services) for j in range(1, links + 1)]
+    app = Application("continuum-bench", services, tuple(
+        CommunicationLink(f"svc{i}", f"svc{z}") for i, z in edges))
     nodes = tuple(
         Node(f"{region}-{k}", region=region, cost_per_cpu_hour=0.5,
              capabilities=NodeCapabilities(cpu=5.0, ram_gb=24.0))
@@ -947,6 +990,10 @@ def continuum_case(case, app, infra, ticks, config, observed=False) -> dict:
         row.update(ledger_total_g=em + mig, alerts=len(sig[0]),
                    fault_events=[(e.kind, e.target, e.start, e.hours)
                                  for e in config.faults.events])
+    # what the replay phase holds its replays to, taken before the
+    # profiled tick below adds to the ledger and the alerts
+    eager = (res, walls, _ledger(rt) if observed else None,
+             _alerts(rt) if observed else None)
     t_next = CONTINUUM_START + ticks
     prof = profile_window(case, lambda: rt.tick(t_next), 6)
     row.update(profiled_tick_wall_ms=prof["wall_ms"],
@@ -957,40 +1004,257 @@ def continuum_case(case, app, infra, ticks, config, observed=False) -> dict:
     emit("continuum", **row)
     if not all(checks.values()):
         raise RuntimeError(f"continuum checks failed on {case}: {checks}")
-    return row
+    return eager
 
 
-def phase_continuum() -> list:
+def phase_continuum() -> dict:
     """The port's adaptive loop on the card, against the port on the CPU.
 
     (a) the continuum benchmark's paper-scale week under the adaptive,
     static and oracle policies; (b) the same week under a seeded fault
     trace with observability and an observe-mode watchtower; (c) the
-    benchmark's delta-replanning scale (96 services on 48 nodes, B=4)."""
+    benchmark's delta-replanning scale (96 services on 48 nodes, B=4); the
+    fan-in week.  Returns each run's card (runtime, result, tick walls),
+    which the replay phase holds its replays to."""
+    from repro_torch.continuum import RuntimeConfig
+
+    eager = {}
+    app, infra = continuum_scenario()
+    for policy, kw in CONTINUUM_POLICIES:
+        eager[f"week_{policy}"] = continuum_case(
+            f"week_{policy}", app, infra, CONTINUUM_WEEK, RuntimeConfig(**kw))
+    eager["week_faults"] = continuum_case(
+        "week_faults", app, infra, CONTINUUM_WEEK,
+        faulty_config(infra, derates=True), observed=True)
+    mid = CONTINUUM_MID
+    app_m, infra_m = continuum_scenario(mid["n_services"],
+                                        mid["nodes_per_region"])
+    eager["mid"] = continuum_case(
+        f"mid_{mid['n_services']}x{len(infra_m.nodes)}", app_m, infra_m,
+        mid["ticks"], RuntimeConfig(scenarios=mid["B"], hysteresis_g=30.0))
+    app_f, infra_f = continuum_scenario(links=CONTINUUM_FAN_IN)
+    eager["week_fanin"] = continuum_case(
+        f"week_fanin{CONTINUUM_FAN_IN}", app_f, infra_f, CONTINUUM_WEEK,
+        RuntimeConfig(**dict(CONTINUUM_POLICIES)["adaptive"]))
+    return eager
+
+
+def faulty_config(infra, derates: bool):
+    """The faulty week's configuration: FaultTrace.generate(seed=0) from
+    tick 24, with one capacity derate or none."""
     from repro_torch.continuum import RuntimeConfig
     from repro_torch.faults import FaultTrace
 
-    rows = []
-    app, infra = continuum_scenario()
-    for policy, kw in CONTINUUM_POLICIES:
-        rows.append(continuum_case(f"week_{policy}", app, infra,
-                                   CONTINUUM_WEEK, RuntimeConfig(**kw)))
     faults = FaultTrace.generate(
         [n.node_id for n in infra.nodes], CONTINUUM_REGIONS,
         ticks=CONTINUUM_START + CONTINUUM_WEEK, seed=0,
-        earliest=CONTINUUM_START, capacity_derates=1)
-    rows.append(continuum_case(
-        "week_faults", app, infra, CONTINUUM_WEEK,
-        RuntimeConfig(scenarios=8, hysteresis_g=30.0, faults=faults,
-                      emergency_replan=True),
-        observed=True))
-    mid = CONTINUUM_MID
-    app, infra = continuum_scenario(mid["n_services"],
-                                    mid["nodes_per_region"])
-    rows.append(continuum_case(
-        f"mid_{mid['n_services']}x{len(infra.nodes)}", app, infra,
-        mid["ticks"], RuntimeConfig(scenarios=mid["B"], hysteresis_g=30.0)))
-    return rows
+        earliest=CONTINUUM_START, capacity_derates=1 if derates else 0)
+    return RuntimeConfig(scenarios=8, hysteresis_g=30.0, faults=faults,
+                         emergency_replan=True)
+
+
+def _decided(result):
+    """:func:`_records` without ``compiles``: a replay books its own
+    signature once where the eager loop books the planner's."""
+    return [{k: v for k, v in r.items() if k != "compiles"}
+            for r in _records(result)]
+
+
+def _ledger(rt):
+    """The ledger's entries, each tick's cells as a sorted list (the eager
+    loop lists a switch's migration cells in its assignment's key order,
+    the replay in service order)."""
+    return [(e.t, e.emissions_g, e.migration_g, e.moved, e.flapped,
+             sorted(e.cells())) for e in rt.obs.ledger.entries]
+
+
+def _alerts(rt):
+    return [(a.t, a.name, a.source, a.target, a.zone, a.value)
+            for a in rt.watch.alerts]
+
+
+def replay_case(case, app, infra, ticks, config, eager, observed=False,
+                devices=("cuda", "cpu"), fallback=None,
+                profile_ticks=REPLAY_PROFILE_TICKS) -> dict:
+    """``run_scanned`` of one trace on each of ``devices``, checked against
+    the eager run ``eager`` = (result, tick walls, ledger, alerts) and
+    card against CPU; then a warm replay of the first ``profile_ticks``
+    ticks on the card under the device-only profiler."""
+    from repro_torch.obs.profile import profile_window
+
+    runs = {}
+    for dev in devices:
+        rt, _ = continuum_runtime(dev, app, infra, ticks, config, observed)
+        t0 = time.perf_counter()
+        res = rt.run_scanned(CONTINUUM_START, ticks)
+        runs[dev] = (rt, res, time.perf_counter() - t0)
+    rt, res, wall = runs[devices[0]]
+    res_e, walls_e, ledger_e, alerts_e = eager
+    decided, decided_e = _decided(res), _decided(res_e)
+    checks = {
+        "fallback": all(r[0].last_scanned_fallback == fallback
+                        for r in runs.values()),
+        "replay_equals_eager": decided == decided_e,
+        "final_assignment_equals_eager":
+            res.final_assignment == res_e.final_assignment,
+    }
+    stage_s = sum(r.constraint_s for r in res.ticks)
+    scan_s = sum(r.replan_s for r in res.ticks)
+    row = dict(
+        case=case, S=len(app.services), N=len(infra.nodes),
+        B=config.scenarios if config.use_whatif and not config.oracle else 1,
+        ticks=len(res.ticks), devices=list(devices),
+        fallback=None if fallback is None else str(rt.last_scanned_fallback),
+        replans=sum(r.replanned for r in res.ticks),
+        switches=sum(r.switched for r in res.ticks),
+        total_emissions_g=res.total_emissions_g,
+        differing_ticks_vs_eager=[
+            r["t"] for r, e in zip(decided, decided_e) if r != e],
+        wall_s=wall,
+        eager_tick_ms_mean=sum(walls_e) / len(walls_e) if walls_e else None)
+    if fallback is None:
+        row.update(stage_s=stage_s, scan_s=scan_s,
+                   commit_s=wall - stage_s - scan_s,
+                   scan_ms_per_tick=1e3 * scan_s / ticks,
+                   replay_ms_per_tick=1e3 * wall / ticks)
+    if len(runs) == 2:
+        rt_c, res_c, wall_c = runs["cpu"]
+        recs, recs_c = _records(res), _records(res_c)
+        checks["card_equals_cpu"] = recs == recs_c
+        checks["final_assignment_card_equals_cpu"] = (
+            res.final_assignment == res_c.final_assignment)
+        row.update(
+            differing_ticks_card_vs_cpu=[
+                r["t"] for r, c in zip(recs, recs_c) if r != c],
+            wall_s_cpu=wall_c,
+            stage_s_cpu=sum(r.constraint_s for r in res_c.ticks),
+            scan_ms_per_tick_cpu=1e3 * sum(
+                r.replan_s for r in res_c.ticks) / ticks)
+    if observed:
+        checks["ledger_equals_eager"] = _ledger(rt) == ledger_e
+        checks["alerts_equal_eager"] = _alerts(rt) == alerts_e
+        checks["no_violations"] = rt.placement_violations == []
+        if len(runs) == 2:
+            checks["ledger_card_equals_cpu"] = \
+                _ledger(rt) == _ledger(runs["cpu"][0])
+            checks["alerts_card_equal_cpu"] = \
+                _alerts(rt) == _alerts(runs["cpu"][0])
+        row.update(alerts=len(rt.watch.alerts),
+                   evictions=sum(r.evicted for r in res.ticks),
+                   emergencies=sum(r.emergency for r in res.ticks))
+    if fallback is None and profile_ticks:
+        rt_p, _ = continuum_runtime("cuda", app, infra, profile_ticks,
+                                    config, observed)
+        profiled = []
+        prof = profile_window(case, lambda: profiled.append(
+            rt_p.run_scanned(CONTINUUM_START, profile_ticks)), 6)
+        scan_ms = 1e3 * sum(r.replan_s for r in profiled[0].ticks)
+        row.update(profiled_ticks=profile_ticks,
+                   profiled_wall_ms=prof["wall_ms"],
+                   profiled_scan_ms=scan_ms,
+                   device_kernel_ms=prof["kernel_ms"],
+                   idle_share=prof["idle_share"],
+                   scan_idle_share=1.0 - prof["kernel_ms"] / scan_ms,
+                   launches=prof["launches"],
+                   launches_per_tick=prof["launches"] / profile_ticks,
+                   top_kernels=prof["top"])
+    row["checks"] = checks
+    emit("replay", **row)
+    if not all(checks.values()):
+        raise RuntimeError(f"replay checks failed on {case}: {checks}")
+    return row
+
+
+def replay_monte_carlo(app, infra, config, week) -> dict:
+    """(f): monte_carlo_emissions over the week under MC_SCALES on the card
+    and on the CPU.  ``week`` is (d)'s adaptive replay row: its total, and
+    its stage and scan seconds, which time the same staged scan for one
+    reality (run_scanned is the M = 1 case of the code), for the marginal
+    device cost of one more carbon reality."""
+    import numpy as np
+
+    from repro_torch.continuum import monte_carlo_emissions
+
+    totals, secs = {}, {}
+    for dev in ("cuda", "cpu"):
+        rt, _ = continuum_runtime(dev, app, infra, CONTINUUM_WEEK, config)
+        t0 = time.perf_counter()
+        totals[dev], _per_tick = monte_carlo_emissions(
+            rt, CONTINUUM_START, CONTINUUM_WEEK, MC_SCALES)
+        secs[dev] = time.perf_counter() - t0
+    M = len(MC_SCALES)
+    card, cpu = totals["cuda"], totals["cpu"]
+    one = week["stage_s"] + week["scan_s"]
+    checks = {
+        "card_equals_cpu": bool(np.allclose(card, cpu, rtol=1e-12,
+                                            atol=0.0)),
+        "scale_1_equals_week": bool(np.isclose(
+            card[0], week["total_emissions_g"], rtol=1e-12, atol=0.0)),
+    }
+    row = dict(
+        case="monte_carlo_week", realities=M, scales=MC_SCALES,
+        B=config.scenarios, branches_per_tick=M * config.scenarios,
+        ticks=CONTINUUM_WEEK, totals_g=[float(x) for x in card],
+        totals_g_cpu=[float(x) for x in cpu],
+        week_total_g=week["total_emissions_g"],
+        max_rel_card_vs_cpu=float(np.max(np.abs(card - cpu) / np.abs(cpu))),
+        seconds_m8=secs["cuda"], seconds_m8_cpu=secs["cpu"],
+        seconds_m1=one,
+        marginal_ms_per_reality_per_tick=1e3 * (
+            secs["cuda"] - one) / (M - 1) / CONTINUUM_WEEK,
+        checks=checks)
+    emit("replay", **row)
+    if not all(checks.values()):
+        raise RuntimeError(f"monte carlo checks failed: {checks}")
+    return row
+
+
+def phase_replay(eager) -> None:
+    """The port's fused trace replay on the card, against the port's eager
+    loop (the continuum phase's card runs) and against the replay on the
+    CPU: runs (d)-(h) and the fan-in week."""
+    from repro_torch.continuum import FallbackReason, RuntimeConfig
+
+    app, infra = continuum_scenario()
+    policies = dict(CONTINUUM_POLICIES)
+    week = {policy: replay_case(                                   # (d)
+        f"week_{policy}", app, infra, CONTINUUM_WEEK,
+        RuntimeConfig(**policies[policy]), eager[f"week_{policy}"])
+        for policy in ("adaptive", "oracle")}
+    # (e) without the derate, against an eager run of the same on the CPU
+    # (the eager loop decides alike on both: the continuum phase)
+    config = faulty_config(infra, derates=False)
+    rt_e, walls_e = continuum_runtime("cpu", app, infra, CONTINUUM_WEEK,
+                                      config, observed=True)
+    res_e = rt_e.run(CONTINUUM_START, CONTINUUM_WEEK)
+    replay_case("week_faults", app, infra, CONTINUUM_WEEK, config,
+                (res_e, [], _ledger(rt_e), _alerts(rt_e)), observed=True)
+    # the fallback replays the eager loop, which (b) ran on both devices
+    replay_case("week_faults_derate", app, infra, CONTINUUM_WEEK,
+                faulty_config(infra, derates=True), eager["week_faults"],
+                observed=True, devices=("cpu",),
+                fallback=FallbackReason.FAULT_CAPACITY_DERATE)
+    replay_monte_carlo(app, infra, RuntimeConfig(**policies["adaptive"]),
+                       week["adaptive"])                           # (f)
+    mid = CONTINUUM_MID                                            # (g)
+    app_m, infra_m = continuum_scenario(mid["n_services"],
+                                        mid["nodes_per_region"])
+    replay_case("mid", app_m, infra_m, mid["ticks"],
+                RuntimeConfig(scenarios=mid["B"], hysteresis_g=30.0),
+                eager["mid"], profile_ticks=2)
+    at = CONTINUUM_AT_SCALE                                        # (h)
+    app_a, infra_a = continuum_scenario(at["n_services"],
+                                        at["nodes_per_region"])
+    config = RuntimeConfig(scenarios=at["B"], hysteresis_g=30.0)
+    rt_a, walls_a = continuum_runtime("cuda", app_a, infra_a, at["ticks"],
+                                      config)
+    res_a = rt_a.run(CONTINUUM_START, at["ticks"])
+    replay_case(f"at_scale_{at['n_services']}x{len(infra_a.nodes)}", app_a,
+                infra_a, at["ticks"], config, (res_a, walls_a, None, None),
+                devices=("cuda",), profile_ticks=1)
+    app_f, infra_f = continuum_scenario(links=CONTINUUM_FAN_IN)
+    replay_case("week_fanin", app_f, infra_f, CONTINUUM_WEEK,
+                RuntimeConfig(**policies["adaptive"]), eager["week_fanin"])
 
 
 def main() -> int:
@@ -1028,7 +1292,8 @@ def main() -> int:
         timed(f"parity {arch}", phase_parity, cfg, prompt_lens)
         torch.cuda.empty_cache()
     timed("planner", phase_planner)
-    timed("continuum", phase_continuum)
+    eager = timed("continuum", phase_continuum)
+    timed("replay", phase_replay, eager)
     emit("seconds", **seconds)
 
     entries = []

@@ -159,7 +159,7 @@ class TickRecord:
     constraint_s: float = 0.0
     dirty_candidates: int = -1
     # Fused-loop telemetry: amortized per-tick wall time of a fused trace
-    # replay (always 0.0 here: the port runs the eager loop only).
+    # replay (``run_scanned``: stage + scan over T; 0.0 on the eager tick).
     tick_fused_s: float = 0.0
     # Fault-handling telemetry: services evicted from dead nodes this
     # tick, whether that triggered an emergency (gate-bypassing) replan,
@@ -171,8 +171,7 @@ class TickRecord:
 
 class FallbackReason(str, Enum):
     """Closed set of fused-replay (``run_scanned``) -> eager fallback
-    reasons.  The port has no fused replay yet; the set is kept so the
-    exporters, and the replay when it comes, read the same reasons.
+    reasons.  A fallback replays the eager loop on the same device.
 
     The str mixin keeps every member ``==`` its stable reason string, so
     existing matches on ``last_scanned_fallback`` keep working; context
@@ -364,9 +363,9 @@ class ContinuumRuntime:
         # configuration untouched)
         self.pipeline.delta_substitution = self.config.delta_replanning
         self.pipeline.telemetry_window = self.config.telemetry_window
-        # why a fused replay last fell back to the eager loop (None = it
-        # didn't, or none has run: the port has no fused replay yet);
-        # scanned_fallbacks is the full structured history
+        # why run_scanned last fell back to the eager loop (None = it
+        # didn't, or none has run); scanned_fallbacks is the full
+        # structured history
         self.last_scanned_fallback: Optional[str] = None
         self.scanned_fallbacks: List[FallbackEvent] = []
         # fault wiring: with a schedule attached, every PLANNING signal
@@ -755,6 +754,18 @@ class ContinuumRuntime:
             gatherer.signal, gatherer.forecast = saved
         return ContinuumResult(ticks=records,
                                final_assignment=dict(self.current or {}))
+
+    def run_scanned(self, start: int, ticks: int) -> ContinuumResult:
+        """``run`` as one staged pass over the trace and one device scan:
+        the constraint pass, KB evolution and lowering tiers are staged
+        host-side in exact numpy arithmetic; the decision tick (warm-start
+        validation, the branch planner, ensemble pricing, hysteresis
+        switch, emissions) runs on the scheduler's device over the staged
+        tensors.  Decisions, emissions and the learned KB match the eager
+        loop; unsupported traces fall back to ``run`` (reason recorded in
+        ``last_scanned_fallback``)."""
+        from .megaloop import run_scanned as _run_scanned
+        return _run_scanned(self, start, ticks)
 
     def hysteresis_gate(
         self, cand: Dict[str, Tuple[str, str]], saving_g: float,

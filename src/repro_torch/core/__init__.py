@@ -1,6 +1,12 @@
 """Paper core: Green-aware Constraint Generator and the float64 planner
 (public API re-exports)."""
-from .adapter import to_dicts, to_json, to_kubernetes, to_prolog
+from .adapter import (
+    KubernetesAdapter,
+    to_dicts,
+    to_json,
+    to_kubernetes,
+    to_prolog,
+)
 from .energy import (
     EnergyEstimator,
     EnergyMixGatherer,

@@ -12,7 +12,7 @@ the target scheduler.  Three built-in dialects:
 from __future__ import annotations
 
 import json
-from typing import Any, Dict, List, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 from .types import Affinity, AvoidNode, Constraint, TimeShift
 
@@ -112,3 +112,71 @@ def to_kubernetes(constraints: Sequence[Constraint]) -> Dict[str, Dict]:
                 "greenops/weight": f"{c.weight * c.memory_weight:.3f}",
             })
     return out
+
+
+class KubernetesAdapter:
+    """Kubernetes dialect with an attached scrape endpoint lifecycle.
+
+    Wraps :func:`to_kubernetes` with the in-cluster serving surface: a
+    sidecar-style Prometheus endpoint (``repro_torch.obs.serve_metrics``) that
+    starts with the adapter and stops with it.  ``metrics_port=0``
+    (default) binds an ephemeral port — read it back from
+    ``adapter.metrics_port`` after :meth:`start`; a fixed port inherits
+    the bind-retry/backoff behaviour of ``MetricsServer`` so a restarted
+    adapter survives the previous socket's TIME_WAIT.  ``start`` and
+    ``close`` are both idempotent, and the adapter is a context manager::
+
+        with KubernetesAdapter(metrics_port=9100) as ad:
+            frags = ad.render(constraints)
+            ... # scrape http://127.0.0.1:9100/metrics while deploying
+    """
+
+    def __init__(self, registry=None, metrics_port: int = 0,
+                 host: str = "127.0.0.1", retries: int = 5,
+                 backoff_s: float = 0.05) -> None:
+        # Lazy obs import: core must stay importable without pulling the
+        # observability stack into every constraint-engine user.
+        if registry is None:
+            from ..obs import MetricsRegistry
+            registry = MetricsRegistry()
+        self.registry = registry
+        self._port_arg = int(metrics_port)
+        self._host = host
+        self._retries = retries
+        self._backoff_s = backoff_s
+        self._server = None
+
+    @property
+    def running(self) -> bool:
+        return self._server is not None
+
+    @property
+    def metrics_port(self) -> Optional[int]:
+        """Bound port while running, else None."""
+        return self._server.port if self._server is not None else None
+
+    def start(self) -> "KubernetesAdapter":
+        if self._server is None:
+            from ..obs import serve_metrics
+            self._server = serve_metrics(
+                self.registry, port=self._port_arg, host=self._host,
+                retries=self._retries, backoff_s=self._backoff_s)
+        return self
+
+    def close(self) -> None:
+        server, self._server = self._server, None
+        if server is not None:
+            server.close()
+
+    def __enter__(self) -> "KubernetesAdapter":
+        return self.start()
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    def render(self, constraints: Sequence[Constraint]) -> Dict[str, Dict]:
+        """Per-service K8s fragments; counts rendered constraints into
+        the adapter registry by kind."""
+        for c in constraints:
+            self.registry.inc("adapter.constraints", labels={"kind": c.kind})
+        return to_kubernetes(constraints)

@@ -243,12 +243,15 @@ def plan_branches(kind: str, ci, ci_mean, E, order, w_placed, w_fcur,
     """The planner over B scenario branches, for communication storage
     ``kind`` ("dense" | "sparse").
 
-    Only ``ci [B, N]``, ``ci_mean [B]``, ``E [B, S, F]`` and
-    ``order [B, S]`` carry the branch axis; the warm-start state
-    (``w_*``), the communication tensors (dense: ``K, has_link``; sparse:
-    the COO ``src, fidx, dst, k``), the penalties ``P, A``, the masks,
-    requirements, capacities and costs are shared.  Every tensor lives on
-    one device in float64 / int64 / bool.
+    ``ci [B, N]``, ``ci_mean [B]``, ``E [B, S, F]`` and ``order [B, S]``
+    carry the branch axis.  The warm-start state is shared
+    (``w_placed, w_fcur, w_ncur [S]``, ``w_cpu, w_ram [N]``) or per
+    branch (``[B, S]`` / ``[B, N]``: each carbon reality of a Monte Carlo
+    replay keeps its own incumbent); the shared form is the per-branch
+    one expanded.  The communication tensors (dense: ``K, has_link``;
+    sparse: the COO ``src, fidx, dst, k``), the penalties ``P, A``, the
+    masks, requirements, capacities and costs are shared.  Every tensor
+    lives on one device in float64 / int64 / bool.
 
     Per branch: greedy construction walks the branch's service order, and
     best-improvement local search takes the best single relocation of the
@@ -314,11 +317,11 @@ def plan_branches(kind: str, ci, ci_mean, E, order, w_placed, w_fcur,
     else:
         raise ValueError(f"unknown planner kind {kind!r}")
 
-    placed = w_placed[None].expand(B, S).clone()
-    fcur = w_fcur[None].expand(B, S).clone()
-    ncur = w_ncur[None].expand(B, S).clone()
-    cpu_load = w_cpu[None].expand(B, N).clone()
-    ram_load = w_ram[None].expand(B, N).clone()
+    placed = w_placed.expand(B, S).clone()
+    fcur = w_fcur.expand(B, S).clone()
+    ncur = w_ncur.expand(B, S).clone()
+    cpu_load = w_cpu.expand(B, N).clone()
+    ram_load = w_ram.expand(B, N).clone()
     skipped = torch.zeros(B, S, dtype=torch.bool, device=dev)
     infeas = torch.zeros(B, dtype=torch.bool, device=dev)
     fail_s = torch.full((B,), -1, dtype=order.dtype, device=dev)

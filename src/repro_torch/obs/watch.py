@@ -31,10 +31,9 @@ same emergency-replan machinery a ``FaultTrace`` outage does.  Armed
 feedback needs the eager tick loop, so ``run_scanned`` falls back with
 ``FallbackReason.WATCH_ARMED`` when armed.
 
-**Riding the fused scan.**  (The port has no fused trace replay yet:
-``continuum/megaloop.py`` is still to port.  This interop is kept whole
-for it.)  On ``run_scanned`` the EWMA/CUSUM/budget recursions run
-*inside* the single fused program: the
+**Riding the fused scan.**  On ``run_scanned``
+(``repro_torch.continuum.megaloop``) the EWMA/CUSUM/budget recursions run
+*inside* the device scan over the staged trace: the
 detector state travels in the scan carry as one nested tuple (lane
 order fixed by :meth:`Watchtower.scan_carry`) and each tick stacks one
 row of pre-threshold statistics (:meth:`scan row <Watchtower.commit_scan>`

@@ -503,3 +503,44 @@ def test_kb_memory_decay_matches_through_ticks():
         assert list(tkb.ck) == list(jkb.ck)
         assert [(c.em, c.mu, c.t) for c in tkb.ck.values()] == \
             [(c.em, c.mu, c.t) for c in jkb.ck.values()]
+
+
+def fan_in_scenario(links=8):
+    """The continuum benchmark's scenario with ``configs/synth.py``-style
+    fan-in: link j (1..links) of service i goes to service
+    ``i + 1 + (j - 1) * (S // links)`` (mod S), so each service has
+    ``links`` links in and out, and the dense communication sums of the
+    planner's one-hot products meet several non-zero terms.  "small"
+    ranks first, so the traffic the workload trace draws from each
+    service's first flavour leaves the flavour the planner runs (as in
+    chip_smoke.py's fan-in week)."""
+    app, infra = build_scenario()
+    S = len(app.services)
+    step = S // links
+    ids = [s.component_id for s in app.services]
+    fan = tuple(
+        type(app.links[0])(ids[i], ids[(i + 1 + (j - 1) * step) % S])
+        for i in range(S) for j in range(1, links + 1))
+    services = tuple(dataclasses.replace(s, flavours_order=("small", "large"))
+                     for s in app.services)
+    return dataclasses.replace(app, services=services, links=fan), infra
+
+
+@pytest.mark.parametrize("config", ["adaptive", "oracle"])
+def test_runtime_fan_in_week_matches(config):
+    """Two days of the fan-in continuum (8 links into each of the 12
+    services, dense) in both packages: the planner's multi-term
+    communication sums decide alike."""
+    app, infra = fan_in_scenario()
+    ticks = 48
+    cfg = dict(CONFIGS[config], scenarios=8) if config == "adaptive" \
+        else CONFIGS[config]
+    j, t = runtimes(
+        app, infra,
+        lambda cls, presets: cls(presets, hours=24 + ticks + 25, seed=0),
+        lambda cls, a: cls(a, seed=0), config=cfg)
+    jres, tres = j.run(24, ticks), t.run(24, ticks)
+    assert_same_run(jres, tres)
+    low = t.pipeline._lowering_cache[2]
+    assert low.comm.kind == "dense" and low.comm.n_links == 8 * 12
+    assert all(r.replanned for r in tres.ticks)

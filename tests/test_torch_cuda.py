@@ -341,9 +341,10 @@ def test_planner_sparse_card_runs_are_bitwise_equal(card):
         assert torch.equal(got.view(torch.int64), want.view(torch.int64))
 
 
-def _continuum_run(device, ticks):
+def _continuum_run(device, ticks, scanned=False):
     """chip_smoke.py's paper-scale continuum week (the continuum
-    benchmark's scenario), adaptive policy, on ``device``."""
+    benchmark's scenario), adaptive policy, on ``device``: the eager loop,
+    or the fused replay (``scanned``)."""
     from repro_torch.continuum import (
         REGION_PRESETS, CarbonTrace, ContinuumRuntime, RuntimeConfig,
         WhatIfPlanner, WorkloadTrace)
@@ -373,6 +374,10 @@ def _continuum_run(device, ticks):
         pipeline=GreenConstraintPipeline(device=device),
         planner=WhatIfPlanner(GreenScheduler(
             SchedulerConfig(emission_weight=1.0), device=device)))
+    if scanned:
+        result = runtime.run_scanned(24, ticks)
+        assert runtime.last_scanned_fallback is None
+        return result
     result = runtime.run(24, ticks)
     assert runtime.last_result.plan_stats.device.startswith(device)
     return result
@@ -392,3 +397,23 @@ def test_continuum_card_decides_as_cpu(card):
     on_card, on_cpu = _continuum_run("cuda", 24), _continuum_run("cpu", 24)
     assert records(on_card) == records(on_cpu)
     assert on_card.final_assignment == on_cpu.final_assignment
+
+
+def test_continuum_scanned_card_decides_as_cpu(card):
+    """The fused replay of the same 24 ticks: on the card as on the CPU,
+    and as the eager loop, every TickRecord field but the timings."""
+    import dataclasses
+
+    timing = ("rebuild_s", "replan_s", "constraint_s", "tick_fused_s",
+              "compiles")
+
+    def records(result):
+        return [{k: v for k, v in dataclasses.asdict(r).items()
+                 if k not in timing} for r in result.ticks]
+
+    on_card = _continuum_run("cuda", 24, scanned=True)
+    on_cpu = _continuum_run("cpu", 24, scanned=True)
+    eager = _continuum_run("cpu", 24)
+    assert records(on_card) == records(on_cpu) == records(eager)
+    assert on_card.final_assignment == on_cpu.final_assignment \
+        == eager.final_assignment
