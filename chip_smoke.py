@@ -40,7 +40,8 @@ Phases, each printing one JSON line:
                same shapes with 8 links per service, with dyadic inputs
                (every sum exact in any order) and with float inputs.
                Each problem is
-               planned twice on the card and once on the CPU (the float
+               planned twice on the card (the sparse problems but the
+               float fan-in one: once) and once on the CPU (the float
                fan-in problems, which repeat their dyadic twins' shapes,
                on the card only); per problem
                one line with S, F, N, L, B, backend, greedy and
@@ -97,8 +98,9 @@ Phases, each printing one JSON line:
                the card only; the fan-in week.  Per run one line: stage,
                scan and commit seconds, the scan's ms per tick beside the
                eager tick's, the ticks that differ from the eager run and
-               between card and CPU, and a profile of a warm replay of
-               its first ticks on the card (device trace only): launches
+               between card and CPU, and (but (d) oracle's) a profile of
+               a warm replay of its first ticks on the card (device trace
+               only): launches
                per tick, kernel ms, idle share.  Fails when a replay falls
                back where it should not (or does not where it should),
                when a non-timing TickRecord field (``compiles`` aside: the
@@ -107,6 +109,33 @@ Phases, each printing one JSON line:
                (e)'s ledger or alerts differ from the eager run's, or when
                (f)'s totals differ card vs CPU, or at scale 1.0 from (a)'s
                adaptive week, by more than rel 1e-12.
+ 10. fleet   — the multi-tenant planner (fleet.plan_many: one
+               plan_branches call per shape group and chunk, the apps on
+               its row axis) and FleetRuntime, at
+               benchmarks/fleet_scale.py's sizes: (a) 100 apps of
+               to_dyadic(synth(50, 200, seed=1+i)) on the one shared
+               infrastructure of seed 0, dense, priorities descending,
+               its scheduler (emission weight 0.25, 2 local-search
+               rounds), under the none, waterfill and price (4 rounds)
+               couplings; each planned twice on the card and once on the
+               CPU; (b) 1000 float apps of synth(50, 200), uncoupled, 4
+               chunks of 256, twice on the card only; (c) its billing
+               run (5 tenants of 3-5 services on 9 nodes, waterfill,
+               Observability, 6 ticks) and the same tenants under
+               FaultTrace.generate(seed=0, capacity_derates=1) for 24
+               ticks, on the card and on the CPU.  Per plan one line:
+               calls, padded apps, cold and warm card ms beside CPU ms,
+               feasible apps, violated nodes, greedy and largest
+               local-search steps, and a profile of one more warm card
+               plan (device trace only; waterfill's covers the first 4
+               apps of its order): launches, kernel ms, idle share.  Per
+               run one line: switches, migrations, evictions, emergency
+               ticks, bills, tick ms.  Fails when two card plans differ,
+               card and CPU differ on (a) or (c), waterfill over-commits
+               a node, a warm replan or tick records a compile miss, a
+               bill differs from its tenant's plain sum of accounted
+               ticks, a tick breaks capacity, or (c) under faults meets
+               no emergency.
 
 Then one line with each phase's seconds, one line {"kernels": [...]}, the
 nvidia-smi line, and last
@@ -116,6 +145,7 @@ checkout of the repository.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -664,7 +694,7 @@ def _segment_sum_patterns(problem, result) -> dict:
     from repro_torch.core import scheduler as sched
 
     low, dev = problem.lowering, torch.device("cuda")
-    esrc, ef, edst, ek = (torch.tensor(a, device=dev)
+    esrc, ef, edst, ek = (torch.tensor(a, device=dev)[None]
                           for a in low.comm.planner_args())
     static = torch.zeros((1, low.S, low.F, low.N), dtype=torch.float64,
                          device=dev)
@@ -675,7 +705,7 @@ def _segment_sum_patterns(problem, result) -> dict:
         seen = set()
         for _ in range(SEGMENT_SUM_RUNS):
             score, _ = sched._sparse_move_score(static, esrc, ef, edst,
-                                                ek[None], *state)
+                                                ek, *state)
             seen.add(hashlib.sha256(score.cpu().numpy().tobytes()).digest())
         return len(seen)
 
@@ -690,18 +720,19 @@ def _segment_sum_patterns(problem, result) -> dict:
 
 
 def _plan_case(case, problem, make_cfg, inputs, exact, profile_it,
-               segment_sums=False, cpu_twin=True) -> dict:
-    """Plan one problem twice on the card and (``cpu_twin``) once on the
-    CPU with the port; check the card's decisions against the CPU's
-    (``exact``: any difference fails) and against capacity; time the warm
-    card call."""
+               segment_sums=False, cpu_twin=True, card_twice=True) -> dict:
+    """Plan one problem twice (``card_twice``, else once) on the card and
+    (``cpu_twin``) once on the CPU with the port; check the card's
+    decisions against the CPU's (``exact``: any difference fails) and
+    against capacity; time the last card call."""
     from repro_torch.core.scheduler import GreenScheduler, reference_objective
     from repro_torch.obs.profile import profile_window
 
     app, infra, comp, comm, cs = inputs
     card = GreenScheduler(make_cfg(), device="cuda")
     first, cold_ms = _timed_plan(card, problem, True)
-    result, warm_ms = _timed_plan(card, problem, True)
+    result, warm_ms = _timed_plan(card, problem, True) if card_twice \
+        else (first, None)
     on_cpu, cpu_ms = _timed_plan(
         GreenScheduler(make_cfg(), device="cpu"), problem, False) \
         if cpu_twin else (None, None)
@@ -715,6 +746,8 @@ def _plan_case(case, problem, make_cfg, inputs, exact, profile_it,
         "card_runs_equal": _decisions(result) == _decisions(first),
         "capacity_ok": _capacity_ok(app, infra, result),
     }
+    if not card_twice:
+        del checks["card_runs_equal"]
     if cpu_twin:
         checks["card_equals_cpu"] = _decisions(result) == _decisions(on_cpu)
     row = dict(
@@ -749,7 +782,7 @@ def _plan_case(case, problem, make_cfg, inputs, exact, profile_it,
         row["move_score_bit_patterns"] = bits
         checks["move_score_runs_equal"] = bits["planner"] == 1
     emit("planner", **row)
-    must_hold = ["capacity_ok", "card_runs_equal"]
+    must_hold = ["capacity_ok"] + ["card_runs_equal"] * card_twice
     if segment_sums:
         must_hold.append("move_score_runs_equal")
     if exact:
@@ -817,13 +850,16 @@ def phase_planner() -> list:
             # the float fan-in problem repeats its dyadic twin's shape:
             # the twin's CPU plan stands for both, so it is planned on the
             # card only; only the dense problems are profiled (a sparse
-            # plan's profile, ~300k launches, takes over a minute)
+            # plan's profile, ~300k launches, takes over a minute); the
+            # other two sparse problems are planned once on the card (a
+            # timing repeat of ~5 s each, cut to make room for the fleet)
             rows.append(_plan_case(
                 tag, problem, lambda: rounds(SchedulerConfig.green()),
                 inputs, exact=dyadic,
                 profile_it=not dyadic and backend == "dense",
                 segment_sums=suffix == fanin and backend == "sparse",
-                cpu_twin=suffix != fanin))
+                cpu_twin=suffix != fanin,
+                card_twice=backend == "dense" or suffix == fanin))
             if backend == "dense":
                 batch = problem.with_scenarios(ScenarioBatch(
                     ci=problem.lowering.ci[None, :] * scale))
@@ -1217,9 +1253,11 @@ def phase_replay(eager) -> None:
 
     app, infra = continuum_scenario()
     policies = dict(CONTINUUM_POLICIES)
+    # the oracle replay is not profiled (cut to make room for the fleet)
     week = {policy: replay_case(                                   # (d)
         f"week_{policy}", app, infra, CONTINUUM_WEEK,
-        RuntimeConfig(**policies[policy]), eager[f"week_{policy}"])
+        RuntimeConfig(**policies[policy]), eager[f"week_{policy}"],
+        profile_ticks=REPLAY_PROFILE_TICKS if policy == "adaptive" else 0)
         for policy in ("adaptive", "oracle")}
     # (e) without the derate, against an eager run of the same on the CPU
     # (the eager loop decides alike on both: the continuum phase)
@@ -1255,6 +1293,272 @@ def phase_replay(eager) -> None:
     app_f, infra_f = continuum_scenario(links=CONTINUUM_FAN_IN)
     replay_case("week_fanin", app_f, infra_f, CONTINUUM_WEEK,
                 RuntimeConfig(**policies["adaptive"]), eager["week_fanin"])
+
+
+# the fleet phase: benchmarks/fleet_scale.py's first full point and its
+# billing run, rebuilt here from the port alone
+FLEET_APPS = 100               # fleet_scale's apps axis starts at 100
+FLEET_SERVICES, FLEET_NODES = 50, 200
+FLEET_LARGE = 1000             # its last point, planned on the card only
+FLEET_PRICE_ROUNDS = 4
+FLEET_PROFILE_PREFIX = 4       # apps of the profiled waterfill prefix
+FLEET_TENANTS, FLEET_TICKS = 5, 6
+FLEET_FAULT_TICKS = 24
+FLEET_CARD = "cuda"
+
+
+def fleet_scheduler(device):
+    """fleet_scale's scheduler: a dyadic emission weight, 2 rounds."""
+    from repro_torch.core.scheduler import GreenScheduler, SchedulerConfig
+
+    return GreenScheduler(SchedulerConfig(emission_weight=0.25,
+                                          local_search_rounds=2),
+                          device=device)
+
+
+def _timed_fleet(fleet, sched):
+    import torch
+
+    from repro_torch.fleet import plan_many
+
+    cuda = torch.device(sched.device).type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = plan_many(fleet, sched)
+    if cuda:
+        torch.cuda.synchronize()
+    return res, 1e3 * (time.perf_counter() - t0)
+
+
+def _fleet_decided(res):
+    """Everything two plans of one fleet must agree on: each app's
+    decisions and plan, the capacity report, the stats but time and
+    compiles."""
+    stats = res.stats.to_dict()
+    stats.pop("plan_time_s")
+    stats.pop("compiles")
+    return ([_decisions(r) for r in res.results],
+            res.capacity.cpu_load.tobytes(), res.capacity.ram_load.tobytes(),
+            res.emissions_g.tobytes(), stats)
+
+
+def fleet_case(case, fleet, cpu_twin=True, profile=None,
+               profile_it=True) -> dict:
+    """Plan one fleet twice on the card and (``cpu_twin``) once on the
+    CPU; the warm card plan must record no compile miss; with
+    ``profile_it``, profile ``profile`` (a fleet, by default this one)
+    planned once more."""
+    from repro_torch.obs import metrics_scope
+    from repro_torch.obs.profile import profile_window
+
+    card = fleet_scheduler(FLEET_CARD)
+    first, cold_ms = _timed_fleet(fleet, card)
+    with metrics_scope() as warm:
+        res, warm_ms = _timed_fleet(fleet, card)
+    cap = res.capacity
+    checks = {
+        "card_runs_equal": _fleet_decided(res) == _fleet_decided(first),
+        "warm_compiles_nothing": (warm.delta("planner.compile.misses") == 0
+                                  and res.stats.compiles == 0),
+    }
+    if fleet.coupling == "waterfill":
+        checks["no_overcommit"] = (cap.violations == 0
+                                   and bool((cap.cpu_load <= cap.cpu_cap).all())
+                                   and bool((cap.ram_load <= cap.ram_cap).all()))
+    on_cpu = cpu_ms = None
+    if cpu_twin:
+        on_cpu, cpu_ms = _timed_fleet(fleet, fleet_scheduler("cpu"))
+        checks["card_equals_cpu"] = \
+            _fleet_decided(res) == _fleet_decided(on_cpu)
+    low = fleet.apps[0].lowering
+    ls = [r.stats.local_search_steps[0] for r in res.results]
+    row = dict(
+        case=case, coupling=fleet.coupling, S=low.S, F=low.F, N=low.N,
+        backend=low.comm.kind, **res.stats.to_dict(),
+        cold_ms=cold_ms, warm_ms=warm_ms, cpu_ms=cpu_ms,
+        warm_ms_per_app=warm_ms / fleet.A,
+        feasible_apps=int(res.feasible.sum()),
+        violated_nodes=cap.violations,
+        total_emissions_g=res.total_emissions_g,
+        greedy_steps=res.results[0].stats.greedy_steps,
+        max_local_search_steps=max(ls),
+        local_search_steps_cpu_max=(
+            max(r.stats.local_search_steps[0] for r in on_cpu.results)
+            if cpu_twin else None))
+    if profile_it and FLEET_CARD == "cuda":
+        target = fleet if profile is None else profile
+        prof = profile_window(case, lambda: _timed_fleet(target, card), 6)
+        row.update(profiled_apps=target.A, profiled_wall_ms=prof["wall_ms"],
+                   device_kernel_ms=prof["kernel_ms"],
+                   idle_share=prof["idle_share"], launches=prof["launches"],
+                   launches_per_app=prof["launches"] / target.A,
+                   top_kernels=prof["top"])
+    row["checks"] = checks
+    emit("fleet", **row)
+    if not all(checks.values()):
+        raise RuntimeError(f"fleet checks failed on {case}: {checks}")
+    return row
+
+
+def fleet_tenants(n_tenants, ticks, device, faults=False):
+    """fleet_scale's billing run: tenant i runs 3 + i % 3 services (two
+    flavours, one link) on 9 shared nodes (16 CPUs, 64 GB) over three
+    regions, waterfilled, priority descending, horizon 4 h."""
+    from repro_torch.continuum import (
+        REGION_PRESETS, CarbonTrace, RuntimeConfig, WorkloadTrace)
+    from repro_torch.core.types import (
+        Application, CommunicationLink, Flavour, FlavourRequirements,
+        Infrastructure, Node, NodeCapabilities, Service)
+    from repro_torch.faults import FaultTrace
+    from repro_torch.fleet import FleetApp, FleetRuntime
+    from repro_torch.obs import Observability
+
+    def tenant_app(tag, n_services):
+        return Application(tag, tuple(
+            Service(f"{tag}-svc{i}", flavours=(
+                Flavour("large", FlavourRequirements(cpu=2.0, ram_gb=4.0)),
+                Flavour("small", FlavourRequirements(cpu=1.0, ram_gb=2.0))))
+            for i in range(n_services)),
+            (CommunicationLink(f"{tag}-svc0", f"{tag}-svc1"),))
+
+    infra = Infrastructure("shared", tuple(
+        Node(f"{r}-{k}", region=r, cost_per_cpu_hour=0.5,
+             capabilities=NodeCapabilities(cpu=16.0, ram_gb=64.0))
+        for r in CONTINUUM_REGIONS for k in range(3)))
+    tenants = [FleetApp(f"tenant{i}", tenant_app(f"t{i}", 3 + i % 3),
+                        WorkloadTrace(tenant_app(f"t{i}", 3 + i % 3),
+                                      seed=i, noise=0.0),
+                        priority=float(n_tenants - i))
+               for i in range(n_tenants)]
+    config = RuntimeConfig(horizon_h=4)
+    if faults:
+        config = RuntimeConfig(horizon_h=4, emergency_replan=True,
+                               faults=FaultTrace.generate(
+                                   [n.node_id for n in infra.nodes],
+                                   CONTINUUM_REGIONS, ticks, seed=0,
+                                   capacity_derates=1))
+    return FleetRuntime(tenants, infra,
+                        CarbonTrace(REGION_PRESETS, hours=ticks + 25, seed=7),
+                        config=config, coupling="waterfill",
+                        obs=Observability(), device=device)
+
+
+def _fleet_run_records(res):
+    return [{name: {k: v for k, v in dataclasses.asdict(r).items()
+                    if k not in TIMING_FIELDS + ("compiles",)}
+             for name, r in fr.records.items()} for fr in res.ticks]
+
+
+def _plain_sum(values) -> float:
+    """Left-to-right float sum: the ledger's order (Python's ``sum`` of
+    floats compensates its rounding)."""
+    total = 0.0
+    for v in values:
+        total += v
+    return total
+
+
+def fleet_runtime_case(case, ticks, faults=False) -> dict:
+    """FleetRuntime.run of the billing tenants on the card and on the
+    CPU: records, final assignments, ledgers and bills equal; each bill
+    the plain sum of its tenant's accounted ticks; no tick over
+    capacity."""
+    from repro_torch.obs import billing_report
+
+    runs = {}
+    for dev in (FLEET_CARD, "cpu"):
+        frt = fleet_tenants(FLEET_TENANTS, ticks, dev, faults)
+        t0 = time.perf_counter()
+        res = frt.run(0, ticks)
+        runs[dev] = (frt, res, time.perf_counter() - t0)
+    (frt, res, wall), (frt_c, res_c, wall_c) = runs[FLEET_CARD], runs["cpu"]
+    bills = billing_report(frt.obs.ledger)
+    recs = [r for fr in res.ticks for r in fr.records.values()]
+    checks = {
+        "records_equal": _fleet_run_records(res) == _fleet_run_records(res_c),
+        "final_assignments_equal": {
+            k: r.final_assignment for k, r in res.results.items()} == {
+            k: r.final_assignment for k, r in res_c.results.items()},
+        "ledger_equal": _ledger(frt) == _ledger(frt_c),
+        "bills_equal": bills == billing_report(frt_c.obs.ledger),
+        "bills_equal_accounted": all(
+            bills[name]["total"] == _plain_sum(
+                t.emissions_g + t.migration_g for t in r.ticks)
+            for name, r in res.results.items()),
+        "no_capacity_violation": (
+            all(fr.violations == 0 and fr.planned_capacity.violations == 0
+                for fr in res.ticks) and frt.placement_violations == []),
+        "warm_ticks_compile_nothing": all(
+            fr.compiles == 0 for fr in res.ticks[1:]),
+    }
+    if faults:
+        checks["emergency_seen"] = any(r.emergency for r in recs)
+    row = dict(
+        case=case, tenants=FLEET_TENANTS, ticks=ticks,
+        nodes=len(frt.infra.nodes),
+        services=[len(fa.app.services) for fa in frt.apps],
+        switches=sum(r.switched for r in recs),
+        migrations=sum(r.migrations for r in recs),
+        evictions=sum(r.evicted for r in recs),
+        emergency_ticks=sum(any(r.emergency for r in fr.records.values())
+                            for fr in res.ticks),
+        total_emissions_g=res.total_emissions_g,
+        billed_g={k: v["total"] for k, v in bills.items()},
+        wall_s=wall, wall_s_cpu=wall_c,
+        tick_ms_mean=1e3 * wall / ticks, tick_ms_mean_cpu=1e3 * wall_c / ticks,
+        replan_ms_mean=1e3 * sum(
+            next(iter(fr.records.values())).replan_s
+            for fr in res.ticks) / ticks,
+        replan_ms_mean_cpu=1e3 * sum(
+            next(iter(fr.records.values())).replan_s
+            for fr in res_c.ticks) / ticks,
+        checks=checks)
+    emit("fleet", **row)
+    if not all(checks.values()):
+        raise RuntimeError(f"fleet runtime checks failed on {case}: {checks}")
+    return row
+
+
+def phase_fleet() -> None:
+    """The port's multi-tenant planner on the card: (a) fleet_scale's
+    first full point, 100 dyadic apps of synth(50, 200) on one shared
+    infrastructure, dense, under the none, waterfill and price couplings,
+    card against CPU; (b) its last point's size, 1000 float apps in 4
+    chunks of 256, uncoupled, on the card only; (c) its billing run, and
+    the same tenants under faults, card against CPU."""
+    from repro_torch.configs.synth import synth_fleet
+    from repro_torch.core.problem import PlacementProblem
+    from repro_torch.fleet import FleetProblem
+
+    t0 = time.perf_counter()
+    probs = tuple(PlacementProblem.build(*p, backend="dense") for p in
+                  synth_fleet(FLEET_APPS, FLEET_SERVICES, FLEET_NODES,
+                              dyadic=True))
+    emit("fleet", case="build_dyadic", apps=len(probs),
+         seconds=time.perf_counter() - t0)
+    prio = tuple(float(FLEET_APPS - i) for i in range(FLEET_APPS))
+    for coupling in ("none", "waterfill", "price"):             # (a)
+        fleet = FleetProblem(apps=probs, priority=prio, coupling=coupling,
+                             price_rounds=FLEET_PRICE_ROUNDS)
+        # a waterfill plan launches ~4,000 kernels an app: its profile
+        # covers the first apps of its order, which plan exactly as they
+        # do in the whole fleet (the capacity they meet is untouched)
+        prefix = FleetProblem(apps=probs[:FLEET_PROFILE_PREFIX],
+                              priority=prio[:FLEET_PROFILE_PREFIX],
+                              coupling=coupling) \
+            if coupling == "waterfill" else None
+        fleet_case(f"dyadic{FLEET_APPS}_{coupling}", fleet, profile=prefix)
+    t0 = time.perf_counter()                                    # (b)
+    large = tuple(PlacementProblem.build(*p, backend="dense") for p in
+                  synth_fleet(FLEET_LARGE, FLEET_SERVICES, FLEET_NODES))
+    emit("fleet", case="build_float", apps=len(large),
+         seconds=time.perf_counter() - t0)
+    # not profiled: (a)'s uncoupled profile covers the same program
+    fleet_case(f"float{FLEET_LARGE}_none", FleetProblem(apps=large),
+               cpu_twin=False, profile_it=False)
+    fleet_runtime_case("billing", FLEET_TICKS)                  # (c)
+    fleet_runtime_case("billing_faults", FLEET_FAULT_TICKS, faults=True)
 
 
 def main() -> int:
@@ -1294,6 +1598,7 @@ def main() -> int:
     timed("planner", phase_planner)
     eager = timed("continuum", phase_continuum)
     timed("replay", phase_replay, eager)
+    timed("fleet", phase_fleet)
     emit("seconds", **seconds)
 
     entries = []

@@ -19,6 +19,11 @@ sum the planner forms is then exact under every profile (the magnitudes
 stay far below 2**53 grid steps), so its decisions cannot depend on the
 order in which sums are taken.  The same holds for scenario branches whose
 carbon is scaled by a dyadic factor.
+
+``synth_fleet`` is ``benchmarks/fleet_scale.py::build_fleet``'s fleet: A
+applications, each ``synth(S, N, seed=seed + 1 + i)``, all on the one
+infrastructure ``synth(S, N, seed=seed)`` gives (what ``FleetProblem``'s
+shared-infrastructure check needs).
 """
 from __future__ import annotations
 
@@ -114,3 +119,20 @@ def to_dyadic(problem: Problem, bits: int = 8) -> Problem:
     return (app, infra.with_nodes(nodes),
             {k: r(v) for k, v in comp.items()},
             {k: r(v) for k, v in comm.items()}, cs)
+
+
+def synth_fleet(n_apps: int, n_services: int = 50, n_nodes: int = 200,
+                seed: int = 0, dyadic: bool = False) -> List[Problem]:
+    """``n_apps`` synthetic problems on ONE shared infrastructure; with
+    ``dyadic`` each goes through :func:`to_dyadic` (the shared
+    infrastructure too)."""
+    def make(s: int) -> Problem:
+        p = synth(n_services, n_nodes, seed=s)
+        return to_dyadic(p) if dyadic else p
+
+    infra = make(seed)[1]
+    out = []
+    for i in range(n_apps):
+        app, _, comp, comm, cs = make(seed + 1 + i)
+        out.append((app, infra, comp, comm, cs))
+    return out

@@ -144,23 +144,23 @@ def _finish_move_deltas(score, onehot, stat_feas, cpu_req, ram_req,
     incumbent's score, mask capacity-infeasible cells (with the service's
     own load removed), unplaced services, and the incumbent cell.
 
-    ``score`` is ``[B, S, F, N]``; the assignment and loads carry ``[B]``;
-    masks, requirements and capacities are shared by every branch."""
+    ``score`` is ``[B, S, F, N]``; the assignment, loads, masks
+    (``stat_feas [B, S, F, N]``) and requirements (``[B, S, F]``) carry
+    ``[B]``; the capacities are shared by every row."""
     B, S, F, N = score.shape
     dev = score.device
     cur = score.gather(2, fcur[:, :, None, None].expand(B, S, 1, N))[:, :, 0]
     cur = cur.gather(2, ncur[:, :, None])[:, :, 0]              # [B, S]
     delta = score - cur[:, :, None, None]
 
-    ar_s = torch.arange(S, device=dev)[None, :]
-    own_cpu = cpu_req[ar_s, fcur]                               # [B, S]
-    own_ram = ram_req[ar_s, fcur]
+    own_cpu = cpu_req.gather(2, fcur[:, :, None])[:, :, 0]      # [B, S]
+    own_ram = ram_req.gather(2, fcur[:, :, None])[:, :, 0]
     cpu_wo = cpu_load[:, None, :] - own_cpu[:, :, None] * onehot
     ram_wo = ram_load[:, None, :] - own_ram[:, :, None] * onehot
-    feas = (stat_feas[None]
-            & (cpu_wo[:, :, None, :] + cpu_req[None, :, :, None]
+    feas = (stat_feas
+            & (cpu_wo[:, :, None, :] + cpu_req[:, :, :, None]
                <= cpu_cap)
-            & (ram_wo[:, :, None, :] + ram_req[None, :, :, None]
+            & (ram_wo[:, :, None, :] + ram_req[:, :, :, None]
                <= ram_cap))
     mask = feas & placed[:, :, None, None]
     incumbent = ((torch.arange(F, device=dev)[:, None]
@@ -192,29 +192,32 @@ def _dense_move_score(static, W, placed, fcur, ncur):
 def _sparse_move_score(static, esrc, ef, edst, w, placed, fcur, ncur):
     """Same score as :func:`_dense_move_score` from a COO edge list — all
     pairwise terms are O(B L) segment sums instead of O(B S^2 F N)
-    products.  ``w`` is ``[B, L]``; the edge columns are shared."""
+    products.  The edge columns and ``w`` are ``[B, L]``."""
     B, S, F, N = static.shape
     dev = static.device
     placed_f = placed.to(static.dtype)
     onehot = _onehot(placed_f, ncur, N)
     boff = torch.arange(B, device=dev)[:, None]
 
-    w_out = (w * placed_f[:, edst]).reshape(-1)                  # [B L]
+    w_out = (w * placed_f.gather(1, edst)).reshape(-1)           # [B L]
     flat_sf = esrc * F + ef
     t_out = _segment_sum(
         B * S * F, (boff * (S * F) + flat_sf).reshape(-1),
         w_out).view(B, S, F)
     colloc = _segment_sum(
         B * S * F * N,
-        (boff * (S * F * N) + flat_sf * N + ncur[:, edst]).reshape(-1),
+        (boff * (S * F * N) + flat_sf * N
+         + ncur.gather(1, edst)).reshape(-1),
         w_out).view(B, S, F, N)
     out = t_out[..., None] - colloc
 
-    w_in = (w * placed_f[:, esrc] * (ef == fcur[:, esrc])).reshape(-1)
+    w_in = (w * placed_f.gather(1, esrc)
+            * (ef == fcur.gather(1, esrc))).reshape(-1)
     inn_sum = _segment_sum(
         B * S, (boff * S + edst).reshape(-1), w_in).view(B, S)
     in_colloc = _segment_sum(
-        B * S * N, (boff * (S * N) + edst * N + ncur[:, esrc]).reshape(-1),
+        B * S * N,
+        (boff * (S * N) + edst * N + ncur.gather(1, esrc)).reshape(-1),
         w_in).view(B, S, N)
     inn = inn_sum[..., None] - in_colloc
     return static + out + inn[:, :, None, :], onehot
@@ -239,45 +242,56 @@ def plan_branches(kind: str, ci, ci_mean, E, order, w_placed, w_fcur,
                   w_ncur, w_cpu, w_ram, comm_args, P, A, stat_feas,
                   cpu_req, ram_req, cpu_cap, ram_cap, must, cost,
                   money_w: float, pref_w: float, emission_w: float,
-                  green_pen: float, max_steps: int) -> PlannerOutput:
-    """The planner over B scenario branches, for communication storage
-    ``kind`` ("dense" | "sparse").
+                  green_pen: float, max_steps) -> PlannerOutput:
+    """The planner over B rows, for communication storage ``kind``
+    ("dense" | "sparse").  A row is a scenario branch of one problem, or
+    one application of a fleet (``repro_torch.fleet.plan_many``).
 
     ``ci [B, N]``, ``ci_mean [B]``, ``E [B, S, F]`` and ``order [B, S]``
-    carry the branch axis.  The warm-start state is shared
-    (``w_placed, w_fcur, w_ncur [S]``, ``w_cpu, w_ram [N]``) or per
-    branch (``[B, S]`` / ``[B, N]``: each carbon reality of a Monte Carlo
-    replay keeps its own incumbent); the shared form is the per-branch
-    one expanded.  The communication tensors (dense: ``K, has_link``;
-    sparse: the COO ``src, fidx, dst, k``), the penalties ``P, A``, the
-    masks, requirements, capacities and costs are shared.  Every tensor
+    carry the row axis.  Every other problem tensor is shared by all rows
+    or carries its own leading ``[B]``: the warm-start state
+    (``w_placed, w_fcur, w_ncur [S]``, ``w_cpu, w_ram [N]``), the
+    communication tensors (dense: ``K, has_link [S, F, S]``; sparse: the
+    COO ``src, fidx, dst, k [L]``), the penalties ``P [S, F, N]`` and
+    ``A [S, S]``, ``stat_feas [S, F, N]``, ``cpu_req, ram_req [S, F]``
+    and ``must [S]``.  The shared form is the per-row one expanded (a
+    view), so both give the same bits.  ``cpu_cap``, ``ram_cap`` and
+    ``cost [N]`` are the shared infrastructure.  ``max_steps`` is an int
+    or a ``[B]`` tensor: each row's local-search bound.  Every tensor
     lives on one device in float64 / int64 / bool.
 
-    Per branch: greedy construction walks the branch's service order, and
+    Per row: greedy construction walks the row's service order, and
     best-improvement local search takes the best single relocation of the
     ``[S, F, N]`` move grid while it beats the incumbent by more than
-    ``_EPS``, for at most ``max_steps`` steps.  A branch whose search has
-    stopped (or whose construction failed) keeps its state while others
-    go on.  Scoring, row-major tie-breaks (flavour rank, then node index),
-    the improvement threshold and the must-deploy bailout are those of
-    the JAX package's ``planner_single``.
+    ``_EPS``, for at most the row's ``max_steps`` steps.  A row whose
+    search has stopped (or whose construction failed) keeps its state
+    while others go on.  Scoring, row-major tie-breaks (flavour rank,
+    then node index), the improvement threshold and the must-deploy
+    bailout are those of the JAX package's ``planner_single``.
     """
     B, S, F = E.shape
     N = ci.shape[1]
     dev, dt = ci.device, ci.dtype
+
+    def rows(x, ndim):
+        return x if x.dim() == ndim + 1 else x.expand(B, *x.shape)
+
+    P, stat_feas = rows(P, 3), rows(stat_feas, 3)
+    A, must = rows(A, 2), rows(must, 1)
+    cpu_req, ram_req = rows(cpu_req, 2), rows(ram_req, 2)
     ar_b = torch.arange(B, device=dev)
     ar_s = torch.arange(S, device=dev)
-    static = (money_w * cost[None, None, :] * cpu_req[:, :, None]
+    static = (money_w * cost[None, None, :] * cpu_req[:, :, :, None]
               + pref_w * torch.arange(F, dtype=dt, device=dev)[:, None]
               + emission_w * E[..., None] * ci[:, None, None, :]
               + green_pen * P)                                  # [B, S, F, N]
-    # the branch's REAL mean CI, passed explicitly: phantom bucket nodes
+    # the row's REAL mean CI, passed explicitly: phantom bucket nodes
     # must not dilute the pairwise-transmission pricing
     wK = emission_w * ci_mean                                   # [B]
     if kind == "dense":
-        K, has_link = comm_args
+        K, has_link = (rows(x, 3) for x in comm_args)
         W = (wK[:, None, None, None] * K
-             + green_pen * A[:, None, :] * has_link)            # [B, S, F, S]
+             + green_pen * A[:, :, None, :] * has_link)         # [B, S, F, S]
 
         def greedy_comm(s, placed_f, fcur, ncur, onehot):
             w_out = W[ar_b, s] * placed_f[:, None, :]           # [B, F, S]
@@ -290,23 +304,25 @@ def plan_branches(kind: str, ci, ci_mean, E, order, w_placed, w_fcur,
         def move_score(placed, fcur, ncur):
             return _dense_move_score(static, W, placed, fcur, ncur)
     elif kind == "sparse":
-        esrc, ef, edst, ek = comm_args
-        w = wK[:, None] * ek + green_pen * A[esrc, edst]        # [B, L]
+        esrc, ef, edst, ek = (rows(x, 1) for x in comm_args)
+        w = (wK[:, None] * ek
+             + green_pen * A[ar_b[:, None], esrc, edst])        # [B, L]
         boff = ar_b[:, None]
 
         def greedy_comm(s, placed_f, fcur, ncur, onehot):
             w_eff = (w * (esrc == s[:, None])
-                     * placed_f[:, edst]).reshape(-1)           # [B L]
+                     * placed_f.gather(1, edst)).reshape(-1)    # [B L]
             t_out = _segment_sum(
                 B * F, (boff * F + ef).reshape(-1), w_eff).view(B, F)
             colloc = _segment_sum(
                 B * F * N, (boff * (F * N) + ef * N
-                            + ncur[:, edst]).reshape(-1),
+                            + ncur.gather(1, edst)).reshape(-1),
                 w_eff).view(B, F, N)
-            w_in = (w * ((edst == s[:, None]) & (ef == fcur[:, esrc]))
-                    * placed_f[:, esrc])                        # [B, L]
+            w_in = (w * ((edst == s[:, None])
+                         & (ef == fcur.gather(1, esrc)))
+                    * placed_f.gather(1, esrc))                 # [B, L]
             in_colloc = _segment_sum(
-                B * N, (boff * N + ncur[:, esrc]).reshape(-1),
+                B * N, (boff * N + ncur.gather(1, esrc)).reshape(-1),
                 w_in.reshape(-1)).view(B, N)
             return ((t_out[:, :, None] - colloc)
                     + (w_in.sum(1)[:, None] - in_colloc)[:, None, :])
@@ -317,22 +333,20 @@ def plan_branches(kind: str, ci, ci_mean, E, order, w_placed, w_fcur,
     else:
         raise ValueError(f"unknown planner kind {kind!r}")
 
-    placed = w_placed.expand(B, S).clone()
-    fcur = w_fcur.expand(B, S).clone()
-    ncur = w_ncur.expand(B, S).clone()
-    cpu_load = w_cpu.expand(B, N).clone()
-    ram_load = w_ram.expand(B, N).clone()
+    placed, fcur, ncur, cpu_load, ram_load = (
+        rows(x, 1).clone() for x in (w_placed, w_fcur, w_ncur, w_cpu, w_ram))
     skipped = torch.zeros(B, S, dtype=torch.bool, device=dev)
     infeas = torch.zeros(B, dtype=torch.bool, device=dev)
     fail_s = torch.full((B,), -1, dtype=order.dtype, device=dev)
     zero = torch.zeros((), dtype=dt, device=dev)
 
-    # -- greedy construction: one step per position of each branch's order
+    # -- greedy construction: one step per position of each row's order
     for k in range(S):
         s = order[:, k]                                         # [B]
-        feas = (stat_feas[s]
-                & (cpu_load[:, None, :] + cpu_req[s][:, :, None] <= cpu_cap)
-                & (ram_load[:, None, :] + ram_req[s][:, :, None]
+        req_cpu, req_ram = cpu_req[ar_b, s], ram_req[ar_b, s]   # [B, F]
+        feas = (stat_feas[ar_b, s]
+                & (cpu_load[:, None, :] + req_cpu[:, :, None] <= cpu_cap)
+                & (ram_load[:, None, :] + req_ram[:, :, None]
                    <= ram_cap))                                 # [B, F, N]
         placed_f = placed.to(dt)
         onehot = _onehot(placed_f, ncur, N)
@@ -348,21 +362,24 @@ def plan_branches(kind: str, ci, ci_mean, E, order, w_placed, w_fcur,
         placed[ar_b, s] = placed_s | do
         fcur[ar_b, s] = torch.where(do, f, fcur[ar_b, s])
         ncur[ar_b, s] = torch.where(do, n, ncur[ar_b, s])
-        # a branch that places nothing still adds 0.0 at node n
+        # a row that places nothing still adds 0.0 at node n
         cpu_load[ar_b, n] = cpu_load[ar_b, n] + torch.where(
-            do, cpu_req[s, f], zero)
+            do, req_cpu[ar_b, f], zero)
         ram_load[ar_b, n] = ram_load[ar_b, n] + torch.where(
-            do, ram_req[s, f], zero)
-        must_s = must[s]
+            do, req_ram[ar_b, f], zero)
+        must_s = must[ar_b, s]
         new_fail = ~any_feas & fresh & must_s
         skipped[ar_b, s] = skipped[ar_b, s] | (~any_feas & fresh & ~must_s)
         fail_s = torch.where(new_fail & (fail_s < 0), s, fail_s)
         infeas = infeas | new_fail
 
-    # -- best-improvement local search; infeasible branches skip it
+    # -- best-improvement local search; infeasible rows skip it
+    per_row = torch.is_tensor(max_steps)
     done = infeas.clone()
     ls_steps = torch.zeros(B, dtype=torch.int64, device=dev)
-    for t in range(max_steps):
+    for t in range(int(max_steps.max()) if per_row else max_steps):
+        if per_row:
+            done = done | (max_steps <= t)      # the row's own bound
         if t % STOP_CHECK_EVERY == 0 and bool(done.all()):
             break
         active = ~done
@@ -379,13 +396,13 @@ def plan_branches(kind: str, ci, ci_mean, E, order, w_placed, w_fcur,
         old_f, old_n = fcur[ar_b, s], ncur[ar_b, s]
         # the reference's order: old node -cpu, -ram; new node +cpu, +ram
         cpu_load[ar_b, old_n] = cpu_load[ar_b, old_n] + torch.where(
-            do, -cpu_req[s, old_f], zero)
+            do, -cpu_req[ar_b, s, old_f], zero)
         ram_load[ar_b, old_n] = ram_load[ar_b, old_n] + torch.where(
-            do, -ram_req[s, old_f], zero)
+            do, -ram_req[ar_b, s, old_f], zero)
         cpu_load[ar_b, n] = cpu_load[ar_b, n] + torch.where(
-            do, cpu_req[s, f], zero)
+            do, cpu_req[ar_b, s, f], zero)
         ram_load[ar_b, n] = ram_load[ar_b, n] + torch.where(
-            do, ram_req[s, f], zero)
+            do, ram_req[ar_b, s, f], zero)
         fcur[ar_b, s] = torch.where(do, f, old_f)
         ncur[ar_b, s] = torch.where(do, n, old_n)
         ls_steps = ls_steps + active

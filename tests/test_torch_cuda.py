@@ -327,9 +327,9 @@ def test_planner_sparse_card_runs_are_bitwise_equal(card):
         _assert_same_plans(sched.plan(problem), first)
 
     low = problem.lowering
-    esrc, ef, edst, ek = (torch.tensor(a, device=card)
+    esrc, ef, edst, ek = (torch.tensor(a, device=card).expand(2, -1)
                           for a in low.comm.planner_args())
-    w = ek[None] * torch.tensor([[1.0], [0.7]], dtype=torch.float64,
+    w = ek * torch.tensor([[1.0], [0.7]], dtype=torch.float64,
                                 device=card)
     static = torch.zeros((2, low.S, low.F, low.N), dtype=torch.float64,
                          device=card)
@@ -417,3 +417,87 @@ def test_continuum_scanned_card_decides_as_cpu(card):
     assert records(on_card) == records(on_cpu) == records(eager)
     assert on_card.final_assignment == on_cpu.final_assignment \
         == eager.final_assignment
+
+
+def _fleet_records(device, coupling):
+    """plan_many of a 5-app dyadic synthetic fleet on ``device``."""
+    from repro_torch.configs.synth import synth_fleet
+    from repro_torch.core.problem import PlacementProblem
+    from repro_torch.core.scheduler import GreenScheduler, SchedulerConfig
+    from repro_torch.fleet import FleetProblem, plan_many
+
+    probs = tuple(PlacementProblem.build(*p)
+                  for p in synth_fleet(5, 40, 32, dyadic=True))
+    fleet = FleetProblem(apps=probs, coupling=coupling,
+                         priority=(5.0, 4.0, 3.0, 2.0, 1.0))
+    res = plan_many(fleet, GreenScheduler(
+        SchedulerConfig(emission_weight=0.25, local_search_rounds=2),
+        device=device))
+    stats = res.stats.to_dict()
+    stats.pop("plan_time_s")
+    stats.pop("compiles")
+    return ([(r.placed.tobytes(), r.fcur.tobytes(), r.ncur.tobytes(),
+              r.emissions_g.tobytes(), r.plans) for r in res.results],
+            res.capacity.cpu_load.tobytes(), res.capacity.ram_load.tobytes(),
+            res.capacity.violations, stats)
+
+
+@pytest.mark.parametrize("coupling", ["none", "waterfill", "price"])
+def test_fleet_card_decides_as_cpu(card, coupling):
+    """plan_many of one dyadic fleet: every app's decisions, the capacity
+    report and the stats equal on the card and on the CPU."""
+    on_card = _fleet_records("cuda", coupling)
+    assert on_card == _fleet_records("cpu", coupling)
+    if coupling == "waterfill":
+        assert on_card[3] == 0
+
+
+def _fleet_runtime_run(device):
+    """Three tenants of test_fleet.py's shape on six shared nodes,
+    waterfilled, observed, for 3 ticks."""
+    import dataclasses
+
+    from repro_torch.continuum import (
+        REGION_PRESETS, CarbonTrace, RuntimeConfig, WorkloadTrace)
+    from repro_torch.core.types import (
+        Application, CommunicationLink, Flavour, FlavourRequirements,
+        Infrastructure, Node, NodeCapabilities, Service)
+    from repro_torch.fleet import FleetApp, FleetRuntime
+    from repro_torch.obs import Observability, billing_report
+
+    def app(tag, n):
+        return Application(tag, tuple(
+            Service(f"{tag}-svc{i}", flavours=(
+                Flavour("large", FlavourRequirements(cpu=2.0, ram_gb=4.0)),
+                Flavour("small", FlavourRequirements(cpu=1.0, ram_gb=2.0))))
+            for i in range(n)),
+            (CommunicationLink(f"{tag}-svc0", f"{tag}-svc1"),))
+
+    infra = Infrastructure("shared", tuple(
+        Node(f"{r}-{k}", region=r, cost_per_cpu_hour=0.5,
+             capabilities=NodeCapabilities(cpu=8.0, ram_gb=32.0))
+        for r in ("solar-south", "wind-north", "coal-east")
+        for k in range(2)))
+    tenants = [FleetApp(f"tenant{i}", app(f"t{i}", 3 + i),
+                        WorkloadTrace(app(f"t{i}", 3 + i), seed=i,
+                                      noise=0.0),
+                        priority=float(3 - i)) for i in range(3)]
+    frt = FleetRuntime(tenants, infra,
+                       CarbonTrace(REGION_PRESETS, hours=24, seed=3),
+                       config=RuntimeConfig(horizon_h=4),
+                       obs=Observability(), device=device)
+    res = frt.run(0, 3)
+    timing = ("rebuild_s", "replan_s", "constraint_s", "tick_fused_s",
+              "compiles")
+    records = [{name: {k: v for k, v in dataclasses.asdict(r).items()
+                       if k not in timing}
+                for name, r in fr.records.items()} for fr in res.ticks]
+    return (records, {k: r.final_assignment for k, r in res.results.items()},
+            billing_report(frt.obs.ledger),
+            sum(fr.violations for fr in res.ticks))
+
+
+def test_fleet_runtime_card_runs_as_cpu(card):
+    on_card = _fleet_runtime_run("cuda")
+    assert on_card == _fleet_runtime_run("cpu")
+    assert on_card[3] == 0
