@@ -9,8 +9,9 @@ Phases, each printing one JSON line:
   2. build   — nvcc builds every kernel under src/repro_torch/kernels/csrc,
                one process per source, all started together.
   3. kernel  — flash attention against its plain PyTorch version on the card
-               at the serving shapes (qwen2-1.5b and zamba2-1.2b's shared
-               block) and the repo's test shapes, with its time, the plain
+               at the serving shapes (qwen2-1.5b, zamba2-1.2b's shared
+               block, granite-moe-3b-a800m's 24/8 heads at hd 64) and the
+               repo's test shapes, with its time, the plain
                version's, SDPA's (a yardstick only) and the least time the
                card could take (bound_ms).  Each row names the kernel route
                its dtype takes: tensor_core_bf16 or cuda_core_f32.
@@ -21,17 +22,28 @@ Phases, each printing one JSON line:
                in float32 both also stand beside the step recurrence
                (ref.ssd_ref) as a second witness.  The slice rows also time
                each of the kernel's five passes alone (pass_ms).
-  5. serve   — per model (qwen2-1.5b, then zamba2-1.2b) at full width and
-               depth in bf16, seeded random weights, ServeEngine(slots=4,
-               max_len=1088): 8 requests of 1024 prompt tokens and 32 new
-               tokens each.  Launch counts are zeroed just before and read
-               just after; each kernel of the model's path must run exactly
-               once per layer (flash: per attention layer or shared-block
-               application; ssd: per mamba2 layer) per admitted request.
-  6. parity  — the same model in float32, 2 requests (512 and 512 tokens
-               for qwen2, 512 and 500 for zamba2), 8 new tokens, with the
-               kernels and with the plain torch paths: equal greedy tokens,
-               prefill logits within 1e-3.
+  5. serve   — per model (qwen2-1.5b, zamba2-1.2b, granite-moe-3b-a800m,
+               falcon-mamba-7b) at full width and depth in bf16, seeded
+               random weights, ServeEngine(slots=4, max_len=1088): 8
+               requests of 1024 prompt tokens and 32 new tokens each.
+               Launch counts are zeroed just before and read just after;
+               each kernel of the model's path must run exactly once per
+               layer (flash: per attention layer or shared-block
+               application; ssd: per mamba2 layer) per admitted request,
+               and a kernel off the path not at all (falcon-mamba's mamba1
+               layers run none).
+  6. parity  — after each model's serve phase, in float32: qwen2 and
+               zamba2 with 2 requests (512 and 512 tokens for qwen2, 512
+               and 500 for zamba2), 8 new tokens, with the kernels and
+               with the plain torch paths: equal greedy tokens, prefill
+               logits within 1e-3.  granite (2 x 512): at every layer both
+               attention paths on the torch path's hidden state within
+               1e-3; equal tokens and logits within 1e-3 wherever both
+               paths route every token to the same experts, with the
+               tokens whose experts differ counted (routing_flips).
+               falcon-mamba (decode_check): one 512-token prompt, the
+               prefill then one decode step against the full forward over
+               513 tokens at the last position, within 2e-3.
   7. planner — the float64 planner (no custom kernel): boutique scenarios
                1-3 through GreenConstraintPipeline.run -> problem_for ->
                GreenScheduler.plan under the green, baseline and oracle
@@ -136,6 +148,14 @@ Phases, each printing one JSON line:
                bill differs from its tenant's plain sum of accounted
                ticks, a tick breaks capacity, or (c) under faults meets
                no emergency.
+ 11. green   — GreenPlacement (launch/green_placement.py) with
+               device="cuda" and device="cpu": place on the four job sets
+               of tests/test_green_placement.py, then run_continuum on
+               tests/test_continuum.py's job set for 6 and 168 ticks.  Per
+               run one line: placements, constraints, stats or the run's
+               summary, wall ms on both.  Fails when a plan, a
+               constraint, a stat, a tick record (timings and
+               ``compiles`` aside) or the final assignment differs.
 
 Then one line with each phase's seconds, one line {"kernels": [...]}, the
 nvidia-smi line, and last
@@ -337,6 +357,9 @@ def phase_kernel(peaks) -> tuple:
             cases.append(((1, S, S, 12, 2, 128), True, dt, 1.0, "slice"))
     # zamba2-1.2b's shared attention block
     cases.append(((1, 1024, 1024, 32, 32, 64), True, "bfloat16", 1.0, "zamba2"))
+    # granite-moe-3b-a800m's attention layers: GQA group 3
+    for dt in ("bfloat16", "float32"):
+        cases.append(((1, 1024, 1024, 24, 8, 64), True, dt, 1.0, "granite"))
     for (B, S, H, KV, hd) in ATTN_SHAPES:
         for dt in ("float32", "bfloat16"):
             for causal in (True, False):
@@ -345,7 +368,7 @@ def phase_kernel(peaks) -> tuple:
     cases.append(((2, 64, 128, 4, 4, 32), False, "float32", 1.0, "cross"))
     cases.append(((1, 128, 128, 2, 2, 32), True, "float32", 8.0, "logits~40"))
 
-    main_entry = zamba_entry = None
+    main_entry = zamba_entry = granite_entry = None
     for (B, Sq, Sk, H, KV, hd), causal, dt, scale, what in cases:
         dtype = getattr(torch, dt)
         q = (scale * torch.randn(B, Sq, H, hd, generator=gen, device=dev)).to(dtype)
@@ -362,7 +385,7 @@ def phase_kernel(peaks) -> tuple:
         row = dict(shape=[B, Sq, Sk, H, KV, hd], causal=causal, dtype=dt,
                    kernel_route=FLASH_ROUTE[dt], case=what, max_abs_err=err,
                    tol=tol, ok=ok)
-        if what in ("slice", "zamba2"):
+        if what in ("slice", "zamba2", "granite"):
             row["ms"] = cuda_ms(lambda: flash_attention_cuda(q, k, v, causal=causal))
             row["eager_ms"] = eager_ms(lambda: flash_attention_cuda(q, k, v, causal=causal))
             row["plain_ms"] = cuda_ms(lambda: flash_attention_plain(q, k, v, causal=causal))
@@ -374,12 +397,14 @@ def phase_kernel(peaks) -> tuple:
                 B, Sq, Sk, H, KV, hd, causal, dtype, peaks)
             if what == "zamba2":
                 zamba_entry = row
-            elif Sq == 1024 and dt == "bfloat16":
+            elif what == "granite" and dt == "bfloat16":
+                granite_entry = row
+            elif what == "slice" and Sq == 1024 and dt == "bfloat16":
                 main_entry = row
         emit("kernel", **row)
         if not ok:
             raise RuntimeError(f"flash_attention disagrees with its plain version: {row}")
-    return main_entry, zamba_entry
+    return main_entry, zamba_entry, granite_entry
 
 
 def phase_ssd(peaks) -> dict:
@@ -519,6 +544,8 @@ def _expected_launches(cfg, n_req: int) -> dict:
     if cfg.family == Family.HYBRID:
         return {"flash_attention": n_req * (cfg.n_layers // cfg.shared_attn_period),
                 "ssd_scan": n_req * cfg.n_layers}
+    if cfg.family == Family.SSM:          # mamba1: no kernel on its path
+        return {"flash_attention": 0, "ssd_scan": 0}
     return {"flash_attention": n_req * cfg.n_layers, "ssd_scan": 0}
 
 
@@ -616,6 +643,134 @@ def phase_parity(cfg, prompt_lens) -> None:
          tokens=tokens["kernel"], checks=checks)
     if not all(checks.values()):
         raise RuntimeError(f"parity checks failed: {checks}")
+
+
+def phase_parity_moe(cfg, prompt_lens) -> None:
+    """The MoE model in float32, kernel path against torch path.  Gate 1: at
+    every layer both attention paths take the torch path's hidden state and
+    agree within 1e-3.  Gate 2 (where the two paths route every token of
+    every layer to the same experts): equal greedy tokens and prefill
+    logits within 1e-3.  Routing is a discontinuous function of its input,
+    so each path's experts are recorded per router call and the tokens
+    whose experts differ are counted (routing_flips)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import moe
+    from repro_torch.models.config import CellTuning
+    from repro_torch.models.model import TRAIN, attention_block
+    from repro_torch.models.ops import ShardCtx
+    from repro_torch.serve import Request, ServeEngine
+    from repro_torch.train.steps import make_prefill_step
+
+    params32 = _weights(cfg)
+    rng = np.random.default_rng(2)
+    prompts = [_prompts(rng, 1, n, cfg.vocab)[0] for n in prompt_lens]
+    ctxs = {impl: ShardCtx(impl) for impl in ("kernel", "torch")}
+
+    layer_err = [0.0] * cfg.n_layers                      # gate 1
+    with torch.inference_mode():
+        for p in prompts:
+            h = params32["embed"][torch.as_tensor(p[None], device="cuda")]
+            for i in range(cfg.n_layers):
+                lp = {blk: {name: w[i] for name, w in ws.items()}
+                      for blk, ws in params32["layers"].items()}
+                outs = {impl: attention_block(lp["attn"], h, cfg, ctx, mode=TRAIN)[0]
+                        for impl, ctx in ctxs.items()}
+                layer_err[i] = max(layer_err[i], float(
+                    (outs["kernel"] - outs["torch"]).abs().max()))
+                y, _ = moe.moe_mlp(lp["moe"], outs["torch"], cfg, ctxs["torch"],
+                                   with_aux=False)
+                h = outs["torch"] + y
+
+    route = moe._route
+    routes, tokens, logits = {}, {}, {}
+    for impl in ctxs:                                     # gate 2
+        rec = routes[impl] = []
+
+        def recording(*args, rec=rec, **kwargs):
+            out = route(*args, **kwargs)
+            rec.append(out[3].sort(dim=-1).values)        # experts per token
+            return out
+
+        moe._route = recording
+        try:
+            engine = ServeEngine(cfg, params32, slots=2, max_len=max(prompt_lens) + 8,
+                                 tuning=CellTuning(compute_dtype="float32",
+                                                   attention_impl=impl))
+            reqs = [Request(i, p, max_new_tokens=8) for i, p in enumerate(prompts)]
+            for r in reqs:
+                engine.submit(r)
+            engine.run_until_drained()
+            tokens[impl] = [r.generated for r in reqs]
+            step = make_prefill_step(cfg, ctxs[impl])
+            logits[impl] = torch.stack([
+                step(engine.params, {"tokens": torch.as_tensor(p[None], device="cuda")})[0][0]
+                for p in prompts])
+            del engine
+        finally:
+            moe._route = route
+    same_calls = len(routes["kernel"]) == len(routes["torch"])
+    flips = sum(int((a != b).any(dim=-1).sum())
+                for a, b in zip(routes["kernel"], routes["torch"]))
+    routed = sum(a.shape[0] for a in routes["torch"])
+    err = float((logits["kernel"] - logits["torch"]).abs().max())
+    gate2 = same_calls and flips == 0
+    checks = {"attention_layers_within_1e-3": max(layer_err) <= 1e-3,
+              "router_calls_aligned": same_calls,
+              "logits_finite": bool(torch.isfinite(logits["kernel"]).all()),
+              "tokens_in_vocab": all(0 <= t < cfg.vocab for ts in tokens["kernel"]
+                                     for t in ts)}
+    if gate2:
+        checks["tokens_equal"] = tokens["kernel"] == tokens["torch"]
+        checks["logits_within_1e-3"] = err <= 1e-3
+    emit("parity", arch=cfg.name, dtype="float32", requests=len(prompts),
+         prompt_lens=list(prompt_lens), new_tokens=8,
+         attention_layer_max_abs_err=max(layer_err),
+         attention_layer_errs=layer_err, routing_flips=flips,
+         routed_tokens=routed, router_calls=len(routes["torch"]),
+         gate2_applies=gate2, prefill_logits_max_abs_err=err, tol=1e-3,
+         tokens_equal=tokens["kernel"] == tokens["torch"],
+         tokens=tokens["kernel"], checks=checks)
+    if not all(checks.values()):
+        raise RuntimeError(f"parity checks failed: {checks}")
+
+
+def phase_decode_check(cfg, prompt_len=512) -> None:
+    """An SSM model in float32 at full width: the prefill over one prompt,
+    then one decode step, equals the training forward over the prompt and
+    the decoded token at the last position within 2e-3 (the recurrent step
+    against the scan, tests/test_models.py's tolerance).  No kernel runs."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models.model import DECODE, PREFILL, TRAIN, forward
+
+    params32 = _weights(cfg)
+    rng = np.random.default_rng(3)
+    toks = torch.as_tensor(_prompts(rng, 1, prompt_len, cfg.vocab)[0][None],
+                           device="cuda")
+    reset_launches()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        pre, cache, _ = forward(params32, cfg, {"tokens": toks}, mode=PREFILL)
+        nxt = torch.argmax(pre[:, -1, : cfg.vocab], dim=-1)[:, None]
+        dec, _, _ = forward(params32, cfg, {"tokens": nxt}, mode=DECODE, cache=cache)
+        full, _, _ = forward(params32, cfg, {"tokens": torch.cat([toks, nxt], 1)},
+                             mode=TRAIN)
+    torch.cuda.synchronize()
+    err = float((dec[:, -1] - full[:, -1]).abs().max())
+    checks = {"decode_within_2e-3": err <= 2e-3,
+              "finite": bool(torch.isfinite(full).all() and torch.isfinite(dec).all()),
+              "no_kernel_launched": dict(LAUNCHES) == {"flash_attention": 0,
+                                                       "ssd_scan": 0}}
+    emit("decode_check", arch=cfg.name, dtype="float32", prompt_len=prompt_len,
+         decode_vs_full_max_abs_err=err, tol=2e-3,
+         logits_max_abs=float(full[:, -1].abs().max()),
+         seconds=time.perf_counter() - t0, launches=dict(LAUNCHES), checks=checks)
+    if not all(checks.values()):
+        raise RuntimeError(f"decode check failed: {checks}")
 
 
 # the planner phase: boutique's scenarios through the pipeline under each
@@ -1561,6 +1716,103 @@ def phase_fleet() -> None:
     fleet_runtime_case("billing_faults", FLEET_FAULT_TICKS, faults=True)
 
 
+# tests/test_green_placement.py's rooflines and job sets
+GREEN_ROOF_TRAIN = {"compute_s": 1.2, "memory_s": 8.5, "collective_s": 3.9}
+GREEN_ROOF_DECODE = {"compute_s": 0.0003, "memory_s": 0.035, "collective_s": 0.003}
+GREEN_WEEK = (6, 168)          # run_continuum's ticks: the test's, a week
+
+
+def green_cases():
+    """The four placements of tests/test_green_placement.py (jobs, pods,
+    traffic) and the job set of tests/test_continuum.py's run_continuum
+    smoke."""
+    from repro_torch.launch.green_placement import JobSpec, PodSpec, TrafficSpec
+
+    jobs = [
+        JobSpec("train-a", "yi-9b", "train_4k", {"perf": GREEN_ROOF_TRAIN}),
+        JobSpec("prefill", "yi-9b", "prefill_32k",
+                {"perf": {"compute_s": 0.37, "memory_s": 2.5,
+                          "collective_s": 1.15}}, steps_per_h=900.0),
+        JobSpec("decode", "yi-9b", "decode_32k", {"perf": GREEN_ROOF_DECODE},
+                steps_per_h=3.6e6)]
+    pods = [PodSpec("clean", "france", carbon=16.0, cost_per_chip_hour=1.3),
+            PodSpec("mid", "finland", carbon=120.0, cost_per_chip_hour=1.1),
+            PodSpec("dirty", "texas", carbon=410.0, cost_per_chip_hour=0.8)]
+    traffic = [TrafficSpec("prefill", "decode", gb_per_h=7200.0),
+               TrafficSpec("train-a", "prefill", gb_per_h=40.0)]
+    full = [JobSpec(f"train-{i}", "yi-9b", "train_4k", {"perf": GREEN_ROOF_TRAIN})
+            for i in range(5)] + [JobSpec("opt", "yi-9b", "train_4k",
+                                          {"perf": GREEN_ROOF_TRAIN},
+                                          must_deploy=False)]
+    only = [PodSpec("only", "france", carbon=16.0)]
+    places = {"avoids_dirty_pod": (jobs, pods, ()),
+              "affinity_colocates": (jobs, pods, traffic),
+              "fleet_full_infeasible": (full, only, ()),
+              "fleet_full_drops_optional": (full[:4] + full[-1:], only, ())}
+    roof = {"tuned": {"compute_s": 1.0, "memory_s": 2.0, "collective_s": 0.5},
+            "default": {"compute_s": 1.3, "memory_s": 2.6, "collective_s": 0.6}}
+    week = ([JobSpec(f"job{i}", "yi-9b", "train_4k", roofline=roof,
+                     flavours_order=("tuned", "default"), steps_per_h=100.0)
+             for i in range(3)],
+            [PodSpec("pod-ss", "solar-south"), PodSpec("pod-wn", "wind-north")],
+            [TrafficSpec("job0", "job1", gb_per_h=20.0)])
+    return places, week
+
+
+def phase_green() -> None:
+    """GreenPlacement (launch/green_placement.py) on the card and on the CPU:
+    place on the four job sets, run_continuum for 6 ticks and a week.
+    Placements, constraints and the three stats must be equal with no
+    tolerance, and every tick record but its timings and ``compiles``."""
+    from repro_torch.launch.green_placement import GreenPlacement
+
+    places, week = green_cases()
+    for case, args in places.items():
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            runs[dev] = GreenPlacement(device=dev).place(*args)
+            runs[dev] += (1e3 * (time.perf_counter() - t0),)
+        (plan, out, stats, ms), (plan_c, out_c, stats_c, ms_c) = \
+            runs["cuda"], runs["cpu"]
+        checks = {"plan_equal": plan == plan_c,
+                  "constraints_equal": list(out.constraints) == list(out_c.constraints),
+                  "stats_equal": stats == stats_c}
+        emit("green", case=case, jobs=len(args[0]), pods=len(args[1]),
+             feasible=plan.feasible,
+             placements=[(p.service, p.flavour, p.node) for p in plan.placements],
+             skipped=list(plan.skipped_services),
+             constraints=[(c.kind, list(c.key())) for c in out.constraints],
+             stats=stats, wall_ms=ms, wall_ms_cpu=ms_c, checks=checks)
+        if not all(checks.values()):
+            raise RuntimeError(f"green placement checks failed on {case}: {checks}")
+    for ticks in GREEN_WEEK:
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            res = GreenPlacement(device=dev).run_continuum(*week, ticks=ticks)
+            runs[dev] = (res, 1e3 * (time.perf_counter() - t0))
+        (res, ms), (res_c, ms_c) = runs["cuda"], runs["cpu"]
+        recs = [{k: v for k, v in r.items() if k != "compiles"} for r in _records(res)]
+        recs_c = [{k: v for k, v in r.items() if k != "compiles"}
+                  for r in _records(res_c)]
+        checks = {"records_equal": recs == recs_c,
+                  "final_assignment_equal":
+                      res.final_assignment == res_c.final_assignment,
+                  "ticks": len(res.ticks) == ticks}
+        s = res.summary()
+        emit("green", case=f"run_continuum_{ticks}", ticks=ticks,
+             replans=s["replans"], switches=s["switches"],
+             migrations=s["migrations"], total_emissions_g=res.total_emissions_g,
+             total_emissions_g_cpu=res_c.total_emissions_g,
+             wall_ms=ms, wall_ms_cpu=ms_c, tick_ms=ms / ticks,
+             tick_ms_cpu=ms_c / ticks,
+             differing_ticks=[r["t"] for r, rc in zip(recs, recs_c) if r != rc],
+             checks=checks)
+        if not all(checks.values()):
+            raise RuntimeError(f"green placement checks failed on {ticks} ticks: {checks}")
+
+
 def main() -> int:
     import torch
 
@@ -1584,25 +1836,31 @@ def main() -> int:
 
     smi, name, peaks = timed("device", phase_device)
     timed("build", phase_build)
-    flash, flash_zamba = timed("kernel", phase_kernel, peaks)
+    flash, flash_zamba, flash_granite = timed("kernel", phase_kernel, peaks)
     ssd = timed("ssd", phase_ssd, peaks)
 
     launches = {}
-    for arch, prompt_lens in (("qwen2-1.5b", (512, 512)),
-                              ("zamba2-1.2b", (512, 500))):
+    for arch, check, fn, arg in (
+            ("qwen2-1.5b", "parity", phase_parity, (512, 512)),
+            ("zamba2-1.2b", "parity", phase_parity, (512, 500)),
+            ("granite-moe-3b-a800m", "parity", phase_parity_moe, (512, 512)),
+            ("falcon-mamba-7b", "decode_check", phase_decode_check, 512)):
         cfg = get_arch(arch)
         launches[arch] = timed(f"serve {arch}", phase_serve, cfg)
         torch.cuda.empty_cache()
-        timed(f"parity {arch}", phase_parity, cfg, prompt_lens)
+        timed(f"{check} {arch}", fn, cfg, arg)
         torch.cuda.empty_cache()
     timed("planner", phase_planner)
     eager = timed("continuum", phase_continuum)
     timed("replay", phase_replay, eager)
     timed("fleet", phase_fleet)
+    timed("green", phase_green)
     emit("seconds", **seconds)
 
     entries = []
-    for spec, row, also in ((FLASH, flash, flash_zamba), (SSD, ssd, None)):
+    for spec, row, also in ((FLASH, flash, {"at_zamba2": flash_zamba,
+                                            "at_granite": flash_granite}),
+                            (SSD, ssd, {})):
         per_path = {arch: n[spec["name"]] for arch, n in launches.items()}
         entry = dict(spec, launches=sum(per_path.values()),
                      launches_per_path=per_path, max_abs_err=row["max_abs_err"],
@@ -1612,8 +1870,8 @@ def main() -> int:
                      dtype=row["dtype"], kernel_route=row["kernel_route"])
         if "pass_ms" in row:
             entry["pass_ms"] = row["pass_ms"]
-        if also is not None:
-            entry["at_zamba2"] = {k: also[k] for k in (
+        for key, at in also.items():
+            entry[key] = {k: at[k] for k in (
                 "shape", "dtype", "kernel_route", "max_abs_err", "ms",
                 "plain_ms", "bound_ms", "bound_by", "library_ms")}
         entries.append(entry)

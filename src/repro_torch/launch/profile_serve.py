@@ -1,6 +1,7 @@
 """Where a serving engine's time goes on the card.
 
   PYTHONPATH=src python -m repro_torch.launch.profile_serve --full
+  PYTHONPATH=src python -m repro_torch.launch.profile_serve --arch falcon-mamba-7b --full
 
 Builds ``ServeEngine`` (bf16, seeded random weights, 4 slots), warms it
 up, then traces one admission (a B=1 prefill of 1024 tokens) and 8 decode

@@ -3,6 +3,8 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \
       --full --batch 4 --prompt-len 32 --gen 16
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b --full
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-moe-3b-a800m --full
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b --full
 
 Without ``--full`` it serves the reduced twin of the architecture.
 ``--device cpu`` runs on the CPU; without a card and without that flag it
@@ -39,7 +41,7 @@ def serve_batch(cfg, params, prompts, gen_tokens, *, device=None) -> torch.Tenso
 
     max_len = S + gen_tokens
     # allocate the sequence leaves at full serving length, then splice the
-    # prefill output; state leaves (mamba2 conv/SSM) carry through as they are
+    # prefill output; state leaves (mamba conv/SSM) carry through as they are
     last_logits, cache = prefill(params, {"tokens": prompts})
     for key in SEQ_KEYS:
         if key in cache:

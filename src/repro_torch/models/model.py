@@ -1,5 +1,7 @@
 """Model forward for the DENSE family (qwen2, yi, nemotron; also VLM
-backbones without their frontend stub) and the HYBRID family (zamba2: a
+backbones without their frontend stub), the MOE family (granite-moe,
+phi3.5-moe: the dense decoder with a mixture-of-experts MLP), the SSM
+family (falcon-mamba: mamba1 layers) and the HYBRID family (zamba2: a
 mamba2 backbone with one shared attention+MLP block).
 
 Three modes share one code path per family:
@@ -11,7 +13,7 @@ Layer weights are stacked along a leading L axis, as in ``repro``; the layer
 stack is a Python loop over that axis (the JAX package's ``lax.scan``).
 Caches carry the same leading L axis (the shared block's KV cache: one
 entry per application point).  Decode updates the cache's tensors IN PLACE
-(k/v at the new position; the mamba2 conv and SSM states whole) and
+(k/v at the new position; the mamba conv and SSM states whole) and
 returns them, where the JAX package returns updated copies.
 
 Parameters must already be in the compute dtype: ``cast_params`` casts them
@@ -26,9 +28,10 @@ import torch
 import torch.nn.functional as F
 
 from .config import ArchConfig, Family, MLPKind
+from .moe import moe_mlp
 from .ops import NOSHARD, ShardCtx, attention_chunked, attention_reference, rms_norm, rotary
 from .sharding import ParamSchema as PS
-from .ssm import STATE_KEYS, mamba2_block
+from .ssm import STATE_KEYS, mamba1_block, mamba2_block
 
 Cache = Dict[str, torch.Tensor]
 
@@ -37,10 +40,8 @@ TRAIN, PREFILL, DECODE = "train", "prefill", "decode"
 # others are per-layer states, written whole
 SEQ_KEYS = ("k", "v", "shared_k", "shared_v")
 
-_PORTED = (Family.DENSE, Family.VLM, Family.HYBRID)
+# families without a stack here yet (see ``_STACKS``)
 _ROADMAP_ITEM = {
-    Family.MOE: "ROADMAP, queue 1 'Model stack': moe.py",
-    Family.SSM: "ROADMAP, queue 1 'Model stack': ssm.py (mamba1)",
     Family.ENC_DEC: "ROADMAP, queue 1 'Model stack': encoder-decoder stack",
     Family.AUDIO: "ROADMAP, queue 1 'Model stack': encoder-decoder stack",
 }
@@ -143,15 +144,23 @@ def _layer(params: Dict, i: int) -> Dict:
             for blk, ws in params["layers"].items()}
 
 
-def _dense_stack(params, h, cfg, ctx, cache, *, mode):
-    """DENSE / VLM decoder: a loop over the stacked [L, ...] weights."""
+def _dense_stack(params, h, cfg, ctx, cache, *, mode, with_aux):
+    """DENSE / VLM / MOE decoder: a loop over the stacked [L, ...] weights.
+    Returns (h, cache, aux): for MOE with ``with_aux``, each aux loss's mean
+    over the layers."""
+    is_moe = cfg.family == Family.MOE
     pos0 = cache["pos"] if cache is not None else None
-    ks, vs = [], []
+    ks, vs, auxes = [], [], []
     for i in range(cfg.n_layers):
         lp = _layer(params, i)
         kv = (cache["k"][i], cache["v"][i], pos0) if cache is not None else None
         h, (k, v) = attention_block(lp["attn"], h, cfg, ctx, mode=mode, kv_cache=kv)
-        h = mlp_block(lp["mlp"], h, cfg)
+        if is_moe:
+            y, aux = moe_mlp(lp["moe"], h, cfg, ctx, with_aux=with_aux)
+            h = h + y
+            auxes.append(aux)
+        else:
+            h = mlp_block(lp["mlp"], h, cfg)
         if mode == PREFILL:
             ks.append(k)
             vs.append(v)
@@ -163,7 +172,10 @@ def _dense_stack(params, h, cfg, ctx, cache, *, mode):
     elif mode == DECODE:
         # k/v were updated in place
         new_cache = {"k": cache["k"], "v": cache["v"], "pos": pos0 + 1}
-    return h, new_cache
+    aux = {}
+    if is_moe and with_aux:
+        aux = {key: torch.stack([a[key] for a in auxes]).mean() for key in auxes[0]}
+    return h, new_cache, aux
 
 
 def _flat_layer(params: Dict, i: int) -> Dict:
@@ -171,7 +183,29 @@ def _flat_layer(params: Dict, i: int) -> Dict:
     return {name: w[i] for name, w in params["layers"].items()}
 
 
-def _hybrid_stack(params, h, cfg, ctx, cache, *, mode):
+def _ssm_stack(params, h, cfg, ctx, cache, *, mode, with_aux):
+    """falcon-mamba: a loop over the stacked mamba1 layers."""
+    pos0 = cache["pos"] if cache is not None else None
+    states = []
+    for i in range(cfg.n_layers):
+        lc = {key: cache[key][i] for key in ("conv", "ssm")} if cache is not None else None
+        h, st = mamba1_block(_flat_layer(params, i), h, cfg, ctx, cache=lc,
+                             return_state=mode == PREFILL)
+        if mode == PREFILL:
+            states.append(st)
+    new_cache = None
+    if mode == PREFILL:
+        new_cache = {key: torch.stack([st[key] for st in states])
+                     for key in ("conv", "ssm")}
+        new_cache["pos"] = torch.tensor(h.shape[1], dtype=torch.int32,
+                                        device=h.device)
+    elif mode == DECODE:
+        # both lanes were updated in place
+        new_cache = dict(cache, pos=pos0 + 1)
+    return h, new_cache, {}
+
+
+def _hybrid_stack(params, h, cfg, ctx, cache, *, mode, with_aux):
     """zamba2: mamba2 backbone; a single SHARED attention+MLP block applied
     after every ``shared_attn_period`` layers (own KV cache per application
     point).  G = L // period groups of ``period`` mamba2 layers, each
@@ -205,24 +239,31 @@ def _hybrid_stack(params, h, cfg, ctx, cache, *, mode):
     elif mode == DECODE:
         # every lane was updated in place
         new_cache = dict(cache, pos=pos0 + 1)
-    return h, new_cache
+    return h, new_cache, {}
+
+
+_STACKS = {Family.DENSE: _dense_stack, Family.VLM: _dense_stack,
+           Family.MOE: _dense_stack, Family.SSM: _ssm_stack,
+           Family.HYBRID: _hybrid_stack}
 
 
 def backbone(params: Dict, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *,
              ctx: ShardCtx = NOSHARD, mode: str = TRAIN,
-             cache: Optional[Cache] = None) -> Tuple[torch.Tensor, Optional[Cache]]:
-    """Embedding + layer stack + final norm: (hidden (B, S, d), cache)."""
+             cache: Optional[Cache] = None,
+             with_aux: bool = False) -> Tuple[torch.Tensor, Optional[Cache], Dict]:
+    """Embedding + layer stack + final norm: (hidden (B, S, d), cache, aux).
+    ``aux`` holds the MoE aux losses when ``with_aux`` (else ``{}``)."""
     if (cache is not None) != (mode == DECODE):
         raise ValueError(f"mode {mode!r} with cache={cache is not None}: "
                          "decode needs a cache and only decode takes one")
-    if cfg.family not in _PORTED:
+    if cfg.family not in _STACKS:
         raise NotImplementedError(
             f"{cfg.name} ({cfg.family.value}) is not ported yet: "
             f"{_ROADMAP_ITEM[cfg.family]}")
     h = params["embed"][batch["tokens"]]
-    stack = _hybrid_stack if cfg.family == Family.HYBRID else _dense_stack
-    h, new_cache = stack(params, h, cfg, ctx, cache, mode=mode)
-    return rms_norm(h, params["final_norm"], cfg.norm_eps), new_cache
+    h, new_cache, aux = _STACKS[cfg.family](params, h, cfg, ctx, cache,
+                                            mode=mode, with_aux=with_aux)
+    return rms_norm(h, params["final_norm"], cfg.norm_eps), new_cache, aux
 
 
 def head(params: Dict, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
@@ -240,14 +281,16 @@ def forward(
     mode: str = TRAIN,
     cache: Optional[Cache] = None,
 ) -> Tuple[torch.Tensor, Optional[Cache], Dict]:
-    """Returns (logits (B, S, Vp), cache (prefill/decode) or None, aux)."""
-    h, new_cache = backbone(params, cfg, batch, ctx=ctx, mode=mode, cache=cache)
-    return head(params, cfg, h), new_cache, {}
+    """Returns (logits (B, S, Vp), cache (prefill/decode) or None, aux: the
+    MoE aux losses' means over the layers, ``{}`` for other families)."""
+    h, new_cache, aux = backbone(params, cfg, batch, ctx=ctx, mode=mode,
+                                 cache=cache, with_aux=True)
+    return head(params, cfg, h), new_cache, aux
 
 
 def cache_schema(cfg: ArchConfig, batch: int, max_len: int, enc_len: int = 0) -> Dict:
     """Decode-cache schema; leading L axis matches the layer stack."""
-    if cfg.family not in _PORTED:
+    if cfg.family not in _STACKS:
         raise NotImplementedError(
             f"{cfg.name} ({cfg.family.value}) is not ported yet: "
             f"{_ROADMAP_ITEM[cfg.family]}")
@@ -272,6 +315,16 @@ def cache_schema(cfg: ArchConfig, batch: int, max_len: int, enc_len: int = 0) ->
                       init="zeros", dtype=torch.float32),
             "shared_k": shared_kv,
             "shared_v": shared_kv,
+            "pos": pos,
+        }
+    if cfg.family == Family.SSM:
+        di, n, K = cfg.d_inner, cfg.ssm.d_state, cfg.ssm.d_conv
+        return {
+            "conv": PS((L, batch, K - 1, di),
+                       ("layers", "batch", "conv", "d_inner"), init="zeros"),
+            "ssm": PS((L, batch, di, n),
+                      ("layers", "batch", "d_inner", "state"),
+                      init="zeros", dtype=torch.float32),
             "pos": pos,
         }
     kv = PS((L, batch, max_len, KV, hd),

@@ -29,10 +29,13 @@ class ShardCtx:
     plain version on a CPU tensor) or "torch" (``attention_chunked``).
     ``ssm_impl``: "kernel" (the mamba2 prefill scan through
     ``kernels.ops.ssd_scan``, likewise) or "torch" (``ssm.ssd_chunked``).
+    ``moe_row_dispatch``: route MoE tokens with a per-row capacity
+    (``moe._moe_mlp_rows``) instead of one global token pool.
     """
 
     attention_impl: str = "kernel"
     ssm_impl: str = "kernel"
+    moe_row_dispatch: bool = False
 
     def __post_init__(self):
         if self.attention_impl not in ATTENTION_IMPLS:

@@ -1,12 +1,14 @@
-"""Mamba2 (SSD) blocks: the zamba2 backbone layer.
+"""State-space blocks: the mamba1 selective scan (falcon-mamba) and the
+mamba2 SSD chunked scan (the zamba2 backbone layer).
 
-Port of the mamba2 half of ``repro.models.ssm``.  The full-sequence path
-(training / prefill) runs the SSD scan either through
+Port of ``repro.models.ssm``.  Both blocks have a full-sequence path
+(training / prefill) and an O(1) recurrent decode step.  The mamba2
+full-sequence path runs the SSD scan either through
 ``kernels.ops.ssd_scan`` (``ssm_impl="kernel"``: the CUDA kernel on a CUDA
 tensor, its plain version on a CPU tensor) or through ``ssd_chunked``
-(``ssm_impl="torch"``, the chunked algorithm in plain PyTorch).  Decode is
-the O(1) one-token recurrence.  The mamba1 half waits: it has no kernel and
-its family (falcon-mamba) is not ported yet.
+(``ssm_impl="torch"``, the chunked algorithm in plain PyTorch).  The mamba1
+scan has no kernel in the reference either (an ``associative_scan`` in XLA
+code): here it is the same log-depth scan in plain PyTorch.
 """
 from __future__ import annotations
 
@@ -39,6 +41,116 @@ def conv_step(x_t: torch.Tensor, conv_state: torch.Tensor, w: torch.Tensor,
     window = torch.cat([conv_state, x_t[:, None, :].to(conv_state.dtype)], dim=1)
     out = torch.einsum("bkc,kc->bc", window, w) + b
     return out, window[:, 1:, :]
+
+
+# ---------------------------------------------------------------------------
+# mamba1 (falcon-mamba)
+# ---------------------------------------------------------------------------
+
+
+def _linear_scan(a: torch.Tensor, b: torch.Tensor, need_a: bool):
+    """Inclusive scan over dim 1 of the pairs (a, b) under
+    (a1, b1) . (a2, b2) = (a1 a2, b1 a2 + b2): the first-order recurrence
+    h_t = a_t h_{t-1} + b_t.  The odd/even recursion of
+    ``jax.lax.associative_scan`` (log depth, linear work), so the products
+    associate as in the reference.  Returns (a-prefix or None, h)."""
+    S = a.shape[1]
+    if S < 2:
+        return (a if need_a else None), b
+    a0, b0 = a[:, 0:-1:2], b[:, 0:-1:2]
+    a1, b1 = a[:, 1::2], b[:, 1::2]
+    odd_a, odd_b = _linear_scan(a0 * a1, b0 * a1 + b1, need_a=True)
+    a2, b2 = a[:, 2::2], b[:, 2::2]
+    if S % 2 == 0:
+        odd_a_in, odd_b_in = odd_a[:, :-1], odd_b[:, :-1]
+    else:
+        odd_a_in, odd_b_in = odd_a, odd_b
+    even_b = odd_b_in * a2 + b2
+    h = torch.empty_like(b)
+    h[:, 0] = b[:, 0]
+    h[:, 2::2] = even_b
+    h[:, 1::2] = odd_b
+    if not need_a:
+        return None, h
+    out_a = torch.empty_like(a)
+    out_a[:, 0] = a[:, 0]
+    out_a[:, 2::2] = odd_a_in * a2
+    out_a[:, 1::2] = odd_a
+    return out_a, h
+
+
+def mamba1_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                Bc: torch.Tensor, Cc: torch.Tensor,
+                h0: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Selective scan.  x, dt: (B,S,di); A: (di,n); Bc, Cc: (B,S,n).
+
+    h_t = exp(dt_t A) h_{t-1} + dt_t B_t x_t ;  y_t = C_t . h_t
+    Log-depth scan over S.  Returns (y (B,S,di), h_S (B,di,n)).
+    """
+    dA = torch.exp(dt[..., None] * A)                      # (B,S,di,n)
+    dBx = (dt * x)[..., None] * Bc[:, :, None, :]          # (B,S,di,n)
+    if h0 is not None:
+        # fold carry-in into the first step
+        dBx[:, 0] += dA[:, 0] * h0
+    _, h = _linear_scan(dA, dBx, need_a=False)
+    y = torch.einsum("bsdn,bsn->bsd", h, Cc)
+    # a copy: a view would keep all of h (S times the state) alive
+    return y, h[:, -1].clone()
+
+
+def mamba1_block(p: Dict, x: torch.Tensor, cfg: ArchConfig, ctx: ShardCtx,
+                 cache: Optional[Dict] = None,
+                 return_state: bool = False) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """Full mamba1 block.  x: (B, S, d).  With ``cache`` (decode), S == 1:
+    the cache's ``conv`` and ``ssm`` tensors (views of one layer of the
+    pooled cache) are updated IN PLACE, where the JAX package returns new
+    arrays, and returned.  ``return_state`` (prefill): also returns the
+    decode state, the last K-1 pre-conv inputs (``conv``) and the final SSM
+    state (``ssm``, float32)."""
+    ssm = cfg.ssm
+    di, n = cfg.d_inner, ssm.d_state
+    dt_rank = max(1, cfg.d_model // 16)
+    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    xz = h @ p["w_in"]                                     # (B,S,2*di)
+    xi, z = xz[..., :di], xz[..., di:]
+    A = -torch.exp(p["A_log"].float())                     # (di,n)
+
+    if cache is None:
+        K = ssm.d_conv
+        xc = F.silu(causal_conv(xi, p["conv_w"], p["conv_b"]))
+        xdb = xc @ p["w_xproj"]                            # (B,S,r+2n)
+        dt = F.softplus(xdb[..., :dt_rank] @ p["w_dt"] + p["dt_bias"])
+        Bc = xdb[..., dt_rank:dt_rank + n].float()
+        Cc = xdb[..., dt_rank + n:].float()
+        y, h_fin = mamba1_scan(xc.float(), dt.float(), A, Bc, Cc)
+        y = y.to(x.dtype) + xc * p["D"]
+        out = (y * F.silu(z)) @ p["w_out"]
+        state = None
+        if return_state:
+            # copies, not views of the (B, S, 2*di) projection
+            state = {"conv": xi[:, -(K - 1):, :].clone(), "ssm": h_fin}
+        return x + out, state
+
+    # --- decode step ----------------------------------------------------------
+    xc, conv_state = conv_step(xi[:, 0], cache["conv"], p["conv_w"], p["conv_b"])
+    xc = F.silu(xc)
+    xdb = xc @ p["w_xproj"]
+    dt = F.softplus(xdb[..., :dt_rank] @ p["w_dt"] + p["dt_bias"])
+    Bc = xdb[..., dt_rank:dt_rank + n].float()
+    Cc = xdb[..., dt_rank + n:].float()
+    dA = torch.exp(dt.float()[..., None] * A)             # (B,di,n)
+    hs = cache["ssm"] * dA + (dt * xc).float()[..., None] * Bc[:, None, :]
+    y = torch.einsum("bdn,bn->bd", hs, Cc).to(x.dtype)
+    y = y + xc * p["D"]
+    out = (y * F.silu(z[:, 0])) @ p["w_out"]
+    cache["conv"].copy_(conv_state)
+    cache["ssm"].copy_(hs)
+    return x + out[:, None, :], cache
+
+
+# ---------------------------------------------------------------------------
+# mamba2 / SSD (zamba2 backbone)
+# ---------------------------------------------------------------------------
 
 
 def segsum(dtA: torch.Tensor) -> torch.Tensor:

@@ -6,9 +6,10 @@ admitted into free slots (a B=1 prefill fills the slot's cache lane), every
 engine tick decodes ONE token for ALL slots, and finished sequences (EOS /
 max tokens) free their slot immediately for the next queued request.
 
-The cache pool is allocated once, in the compute dtype (the mamba2 SSM
-state in float32), with the layouts of ``cache_schema``: ``(L, B, S_max,
-KV, hd)`` for k/v, and per-layer state lanes for the hybrid family.  Idle
+The cache pool is allocated once, in the compute dtype (the mamba SSM
+states in float32), with the layouts of ``cache_schema``: ``(L, B, S_max,
+KV, hd)`` for k/v, and per-layer state lanes for the SSM and hybrid
+families, which an admission writes whole.  Idle
 slots decode a stale token at position 0 of their own lane, which the next
 admission overwrites, as in ``repro.serve.engine``.
 """
@@ -87,7 +88,8 @@ class ServeEngine:
 
         # single-sequence prefill (B=1) + pooled decode (B=slots)
         ctx = ShardCtx(attention_impl=tuning.attention_impl,
-                       ssm_impl=tuning.ssm_impl)
+                       ssm_impl=tuning.ssm_impl,
+                       moe_row_dispatch=tuning.moe_row_dispatch)
         self._prefill = make_prefill_step(cfg, ctx)
         self._decode = make_serve_step(cfg, ctx)
 

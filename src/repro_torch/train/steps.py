@@ -24,7 +24,7 @@ def make_prefill_step(cfg: ArchConfig, ctx: ShardCtx = NOSHARD) -> Callable:
 
     @torch.inference_mode()
     def prefill_step(params, batch):
-        h, cache = backbone(params, cfg, batch, ctx=ctx, mode=PREFILL)
+        h, cache, _ = backbone(params, cfg, batch, ctx=ctx, mode=PREFILL)
         return head(params, cfg, h[:, -1]), cache
 
     return prefill_step
@@ -38,7 +38,7 @@ def make_serve_step(cfg: ArchConfig, ctx: ShardCtx = NOSHARD) -> Callable:
 
     @torch.inference_mode()
     def serve_step(params, cache, tokens):
-        h, new_cache = backbone(params, cfg, {"tokens": tokens}, ctx=ctx,
+        h, new_cache, _ = backbone(params, cfg, {"tokens": tokens}, ctx=ctx,
                                 mode=DECODE, cache=cache)
         return head(params, cfg, h[:, -1]), new_cache
 

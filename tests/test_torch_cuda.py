@@ -501,3 +501,150 @@ def test_fleet_runtime_card_runs_as_cpu(card):
     on_card = _fleet_runtime_run("cuda")
     assert on_card == _fleet_runtime_run("cpu")
     assert on_card[3] == 0
+
+
+# --------------------------------------------------------------------------
+# the MoE and mamba1 families, and green placement
+# --------------------------------------------------------------------------
+
+
+def _reduced_on_both(name, card):
+    """A reduced config (granite keeps padded experts: 5 of 8) and its seeded
+    float32 weights on the CPU and on the card."""
+    import dataclasses
+
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.models.model import cast_params
+    from repro_torch.models.schema import build_schema
+    from repro_torch.models.sharding import init_from_schema
+    from repro_torch.models.testing import reduced
+
+    cfg = reduced(ARCHS[name])
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, n_experts=5, n_experts_padded=8))
+    cpu = init_from_schema(0, build_schema(cfg), torch.float32, "cpu")
+    return cfg, cpu, cast_params(cpu, torch.float32, card)
+
+
+def _engine_tokens(cfg, params, device, prompts):
+    from repro_torch.serve import Request, ServeEngine
+
+    engine = ServeEngine(cfg, params, slots=2, max_len=48, device=device)
+    reqs = [Request(i, p, max_new_tokens=5) for i, p in enumerate(prompts)]
+    for r in reqs:
+        engine.submit(r)
+    engine.run_until_drained()
+    return [r.generated for r in reqs]
+
+
+@pytest.mark.parametrize("name", ["granite-moe-3b-a800m", "falcon-mamba-7b"])
+def test_new_families_on_card_match_cpu(card, name):
+    """Reduced granite-moe and falcon-mamba on the card against the CPU:
+    train and prefill logits (float32; flash's f32 route against its plain
+    version) within 1e-4 of their magnitude, prefill + decode against the
+    full forward within 2e-3, equal greedy engine tokens, and the flash
+    kernel once per attention layer and admission (none for mamba1)."""
+    from repro_torch.models import model as tm
+
+    cfg, cpu, gpu = _reduced_on_both(name, card)
+    rng = np.random.default_rng(1)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab, size=(2, 13)))
+    for mode in (tm.TRAIN, tm.PREFILL):
+        ref, _, ref_aux = tm.forward(cpu, cfg, {"tokens": tokens}, mode=mode)
+        out, _, aux = tm.forward(gpu, cfg, {"tokens": tokens.to(card)}, mode=mode)
+        scale = max(1.0, float(ref.abs().max()))
+        torch.testing.assert_close(out.cpu(), ref, atol=1e-4 * scale, rtol=1e-4)
+        assert set(aux) == set(ref_aux)
+        for key in ref_aux:
+            torch.testing.assert_close(aux[key].cpu(), ref_aux[key],
+                                       atol=1e-4, rtol=1e-4)
+    last, cache, _ = tm.forward(gpu, cfg, {"tokens": tokens.to(card)}, mode=tm.PREFILL)
+    for key in ("k", "v"):
+        if key in cache:
+            cache[key] = torch.nn.functional.pad(cache[key], (0, 0, 0, 0, 0, 4))
+    nxt = torch.argmax(last[:, -1, : cfg.vocab], dim=-1)[:, None]
+    dl, _, _ = tm.forward(gpu, cfg, {"tokens": nxt}, mode=tm.DECODE, cache=cache)
+    full, _, _ = tm.forward(gpu, cfg, {"tokens": torch.cat([tokens.to(card), nxt], 1)})
+    assert float((dl[:, -1] - full[:, -1]).abs().max()) < 2e-3
+    prompts = [rng.integers(0, cfg.vocab, size=n) for n in (12, 9, 14)]
+    reset_launches()
+    on_card = _engine_tokens(cfg, gpu, card, prompts)
+    per_request = 0 if cfg.moe is None else cfg.n_layers
+    assert LAUNCHES == {"flash_attention": 3 * per_request, "ssd_scan": 0}
+    assert on_card == _engine_tokens(cfg, cpu, "cpu", prompts)
+
+
+@pytest.mark.parametrize("rows", [False, True])
+def test_moe_combine_is_bitwise_repeatable_on_card(card, rows):
+    """granite's routing width (48 padded experts, top-8) over 512 tokens in
+    bfloat16: the combine adds each token's contributions in a fixed order,
+    so two runs give the same bits."""
+    import dataclasses
+
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.models.moe import moe_mlp
+    from repro_torch.models.ops import ShardCtx
+
+    cfg = dataclasses.replace(ARCHS["granite-moe-3b-a800m"], d_model=256, d_ff=128)
+    Ep, d, ff = cfg.moe.n_experts_padded, cfg.d_model, cfg.d_ff
+    g = torch.Generator(device=card).manual_seed(3)
+    p = {"ln": torch.ones(d, device=card, dtype=torch.bfloat16),
+         "router": (torch.randn(d, Ep, generator=g, device=card) / 16).bfloat16()}
+    for key, shape in (("w_gate", (Ep, d, ff)), ("w_up", (Ep, d, ff)),
+                       ("w_down", (Ep, ff, d))):
+        p[key] = (torch.randn(*shape, generator=g, device=card)
+                  / math.sqrt(shape[1])).bfloat16()
+    x = torch.randn(2, 256, d, generator=g, device=card).bfloat16()
+    ctx = ShardCtx(moe_row_dispatch=rows)
+    a, aux = moe_mlp(p, x, cfg, ctx)
+    b, _ = moe_mlp(p, x, cfg, ctx)
+    assert a.dtype == torch.bfloat16 and torch.equal(a, b)
+    assert torch.isfinite(a.float()).all() and float(aux["drop_fraction"]) < 0.5
+
+
+def test_green_placement_card_decides_as_cpu(card):
+    """GreenPlacement's four placements of tests/test_green_placement.py and
+    its 6-tick run_continuum: card and CPU decide alike, no tolerance."""
+    import dataclasses
+
+    from repro_torch.launch.green_placement import (
+        GreenPlacement, JobSpec, PodSpec, TrafficSpec)
+
+    train = {"compute_s": 1.2, "memory_s": 8.5, "collective_s": 3.9}
+    jobs = [JobSpec("train-a", "yi-9b", "train_4k", {"perf": train}),
+            JobSpec("prefill", "yi-9b", "prefill_32k",
+                    {"perf": {"compute_s": 0.37, "memory_s": 2.5,
+                              "collective_s": 1.15}}, steps_per_h=900.0),
+            JobSpec("decode", "yi-9b", "decode_32k",
+                    {"perf": {"compute_s": 0.0003, "memory_s": 0.035,
+                              "collective_s": 0.003}}, steps_per_h=3.6e6)]
+    pods = [PodSpec("clean", "france", carbon=16.0, cost_per_chip_hour=1.3),
+            PodSpec("mid", "finland", carbon=120.0, cost_per_chip_hour=1.1),
+            PodSpec("dirty", "texas", carbon=410.0, cost_per_chip_hour=0.8)]
+    traffic = [TrafficSpec("prefill", "decode", gb_per_h=7200.0),
+               TrafficSpec("train-a", "prefill", gb_per_h=40.0)]
+    full = [JobSpec(f"train-{i}", "yi-9b", "train_4k", {"perf": train})
+            for i in range(5)] + [JobSpec("opt", "yi-9b", "train_4k",
+                                          {"perf": train}, must_deploy=False)]
+    only = [PodSpec("only", "france", carbon=16.0)]
+    for args in ((jobs, pods, ()), (jobs, pods, traffic), (full, only, ()),
+                 (full[:4] + full[-1:], only, ())):
+        plan, out, stats = GreenPlacement(device="cuda").place(*args)
+        plan_c, out_c, stats_c = GreenPlacement(device="cpu").place(*args)
+        assert plan == plan_c and stats == stats_c
+        assert list(out.constraints) == list(out_c.constraints)
+    roof = {"tuned": {"compute_s": 1.0, "memory_s": 2.0, "collective_s": 0.5},
+            "default": {"compute_s": 1.3, "memory_s": 2.6, "collective_s": 0.6}}
+    week = ([JobSpec(f"job{i}", "yi-9b", "train_4k", roofline=roof,
+                     flavours_order=("tuned", "default"), steps_per_h=100.0)
+             for i in range(3)],
+            [PodSpec("pod-ss", "solar-south"), PodSpec("pod-wn", "wind-north")],
+            [TrafficSpec("job0", "job1", gb_per_h=20.0)])
+    res = GreenPlacement(device="cuda").run_continuum(*week, ticks=6)
+    res_c = GreenPlacement(device="cpu").run_continuum(*week, ticks=6)
+    strip = dict(compiles=0, rebuild_s=0.0, replan_s=0.0, constraint_s=0.0,
+                 tick_fused_s=0.0)
+    assert [dataclasses.replace(r, **strip) for r in res.ticks] == \
+        [dataclasses.replace(r, **strip) for r in res_c.ticks]
+    assert res.final_assignment == res_c.final_assignment

@@ -33,7 +33,8 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch.serve, repro_torch.launch.serve, "
             "repro_torch.core.pipeline, repro_torch.core.scheduler, "
             "repro_torch.learn, repro_torch.obs, repro_torch.configs.synth, "
-            "repro_torch.continuum, repro_torch.faults, repro_torch.fleet; "
+            "repro_torch.continuum, repro_torch.faults, repro_torch.fleet, "
+            "repro_torch.launch.green_placement, repro_torch.models.moe; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(SRC))
