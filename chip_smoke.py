@@ -10,8 +10,12 @@ Phases, each printing one JSON line:
                one process per source, all started together.
   3. kernel  — flash attention against its plain PyTorch version on the card
                at the serving shapes (qwen2-1.5b, zamba2-1.2b's shared
-               block, granite-moe-3b-a800m's 24/8 heads at hd 64) and the
-               repo's test shapes, with its time, the plain
+               block, granite-moe-3b-a800m's 24/8 heads at hd 64, and
+               whisper-large-v3's 20/20 heads at hd 64 three ways: its
+               encoder over 1536 frames and its cross-attention of 224
+               prompt tokens over them, both non-causal, bf16 and the
+               encoder also float32; its decoder self-attention over 224,
+               causal) and the repo's test shapes, with its time, the plain
                version's, SDPA's (a yardstick only) and the least time the
                card could take (bound_ms).  Each row names the kernel route
                its dtype takes: tensor_core_bf16 or cuda_core_f32.
@@ -23,15 +27,20 @@ Phases, each printing one JSON line:
                (ref.ssd_ref) as a second witness.  The slice rows also time
                each of the kernel's five passes alone (pass_ms).
   5. serve   — per model (qwen2-1.5b, zamba2-1.2b, granite-moe-3b-a800m,
-               falcon-mamba-7b) at full width and depth in bf16, seeded
-               random weights, ServeEngine(slots=4, max_len=1088): 8
-               requests of 1024 prompt tokens and 32 new tokens each.
+               falcon-mamba-7b, whisper-large-v3) at full width and depth
+               in bf16, seeded random weights, ServeEngine(slots=4,
+               max_len=1088): 8 requests of 1024 prompt tokens and 32 new
+               tokens each; whisper at its published decoder context,
+               max_len=448, with prompts of 224 (the half of it whisper
+               gives its conditioning prompt) over the engine's zero
+               frames (1536, the frontend a stub).
                Launch counts are zeroed just before and read just after;
                each kernel of the model's path must run exactly once per
                layer (flash: per attention layer or shared-block
-               application; ssd: per mamba2 layer) per admitted request,
-               and a kernel off the path not at all (falcon-mamba's mamba1
-               layers run none).
+               application, whisper's three per decoder layer: encoder,
+               decoder self, cross; ssd: per mamba2 layer) per admitted
+               request, and a kernel off the path not at all
+               (falcon-mamba's mamba1 layers run none).
   6. parity  — after each model's serve phase, in float32: qwen2 and
                zamba2 with 2 requests (512 and 512 tokens for qwen2, 512
                and 500 for zamba2), 8 new tokens, with the kernels and
@@ -43,7 +52,12 @@ Phases, each printing one JSON line:
                tokens whose experts differ counted (routing_flips).
                falcon-mamba (decode_check): one 512-token prompt, the
                prefill then one decode step against the full forward over
-               513 tokens at the last position, within 2e-3.
+               513 tokens at the last position, within 2e-3.  whisper
+               (nonzero biases, frames 0.02 N(0, 1) from a seeded
+               generator, through serve_batch): 2 requests of 224 and 200
+               tokens, 8 new tokens: encoder output and prefill logits
+               within 1e-3, equal greedy tokens; and prefill + one decode
+               step against the full forward within 2e-3.
   7. planner — the float64 planner (no custom kernel): boutique scenarios
                1-3 through GreenConstraintPipeline.run -> problem_for ->
                GreenScheduler.plan under the green, baseline and oracle
@@ -341,6 +355,14 @@ def phase_build():
     emit("build", seconds=time.perf_counter() - t0, per_source=per_source)
 
 
+# the kernel rows timed beside the main one (qwen2's bf16 row), by the key
+# each takes in the kernels line
+FLASH_AT = {"at_zamba2": ("zamba2", "bfloat16"), "at_granite": ("granite", "bfloat16"),
+            "at_whisper_encoder": ("whisper_encoder", "bfloat16"),
+            "at_whisper_cross": ("whisper_cross", "bfloat16"),
+            "at_whisper_self": ("whisper_self", "bfloat16")}
+
+
 def phase_kernel(peaks) -> tuple:
     import torch
 
@@ -360,6 +382,13 @@ def phase_kernel(peaks) -> tuple:
     # granite-moe-3b-a800m's attention layers: GQA group 3
     for dt in ("bfloat16", "float32"):
         cases.append(((1, 1024, 1024, 24, 8, 64), True, dt, 1.0, "granite"))
+    # whisper-large-v3's encoder (non-causal over the 1536 frames), its
+    # cross-attention (224 prompt tokens over the frames) and its decoder
+    # self-attention: 20/20 heads, hd 64
+    for dt in ("bfloat16", "float32"):
+        cases.append(((1, 1536, 1536, 20, 20, 64), False, dt, 1.0, "whisper_encoder"))
+    cases.append(((1, 224, 1536, 20, 20, 64), False, "bfloat16", 1.0, "whisper_cross"))
+    cases.append(((1, 224, 224, 20, 20, 64), True, "bfloat16", 1.0, "whisper_self"))
     for (B, S, H, KV, hd) in ATTN_SHAPES:
         for dt in ("float32", "bfloat16"):
             for causal in (True, False):
@@ -368,7 +397,8 @@ def phase_kernel(peaks) -> tuple:
     cases.append(((2, 64, 128, 4, 4, 32), False, "float32", 1.0, "cross"))
     cases.append(((1, 128, 128, 2, 2, 32), True, "float32", 8.0, "logits~40"))
 
-    main_entry = zamba_entry = granite_entry = None
+    timed = {case for case, _ in FLASH_AT.values()} | {"slice", "granite"}
+    main_entry, at = None, {}
     for (B, Sq, Sk, H, KV, hd), causal, dt, scale, what in cases:
         dtype = getattr(torch, dt)
         q = (scale * torch.randn(B, Sq, H, hd, generator=gen, device=dev)).to(dtype)
@@ -385,7 +415,7 @@ def phase_kernel(peaks) -> tuple:
         row = dict(shape=[B, Sq, Sk, H, KV, hd], causal=causal, dtype=dt,
                    kernel_route=FLASH_ROUTE[dt], case=what, max_abs_err=err,
                    tol=tol, ok=ok)
-        if what in ("slice", "zamba2", "granite"):
+        if what in timed:
             row["ms"] = cuda_ms(lambda: flash_attention_cuda(q, k, v, causal=causal))
             row["eager_ms"] = eager_ms(lambda: flash_attention_cuda(q, k, v, causal=causal))
             row["plain_ms"] = cuda_ms(lambda: flash_attention_plain(q, k, v, causal=causal))
@@ -395,16 +425,15 @@ def phase_kernel(peaks) -> tuple:
                     qt, kt, vt, is_causal=causal, enable_gqa=True))
             row["bound_ms"], row["bound_by"] = attention_bound_ms(
                 B, Sq, Sk, H, KV, hd, causal, dtype, peaks)
-            if what == "zamba2":
-                zamba_entry = row
-            elif what == "granite" and dt == "bfloat16":
-                granite_entry = row
-            elif what == "slice" and Sq == 1024 and dt == "bfloat16":
+            for key, case in FLASH_AT.items():
+                if (what, dt) == case:
+                    at[key] = row
+            if what == "slice" and Sq == 1024 and dt == "bfloat16":
                 main_entry = row
         emit("kernel", **row)
         if not ok:
             raise RuntimeError(f"flash_attention disagrees with its plain version: {row}")
-    return main_entry, zamba_entry, granite_entry
+    return main_entry, at
 
 
 def phase_ssd(peaks) -> dict:
@@ -521,8 +550,9 @@ def _weights(cfg):
     without the rescale the qwen2 parity phase fails (prefill logits 3.7
     apart, different tokens) while the kernel agrees with its plain
     version.  Rescaling the projections of every attention block (the
-    stacked layers' and zamba2's shared one) to their contracted width
-    keeps the parity phase a test of the kernels.
+    stacked layers', zamba2's shared one, whisper's encoder and cross
+    blocks) to their contracted width keeps the parity phase a test of the
+    kernels.
     """
     import torch
 
@@ -530,23 +560,32 @@ def _weights(cfg):
     from repro_torch.models.sharding import init_from_schema
 
     params = init_from_schema(0, build_schema(cfg), torch.float32, "cuda")
-    for group in ("layers", "shared"):
-        if "attn" in params.get(group, {}):
-            _rescale_attention(params[group]["attn"])
+    for group in ("layers", "shared", "enc_layers"):
+        for blk in ("attn", "cross"):
+            if blk in params.get(group, {}):
+                _rescale_attention(params[group][blk])
     return params
 
 
 def _expected_launches(cfg, n_req: int) -> dict:
     """Launches of each kernel for ``n_req`` admitted requests: one per
-    attention layer (or shared-block application) and per mamba2 layer."""
+    attention layer (or shared-block application; three per whisper decoder
+    layer: encoder, decoder self, cross) and per mamba2 layer."""
     from repro_torch.models.config import Family
 
+    if cfg.family in (Family.ENC_DEC, Family.AUDIO):
+        return {"flash_attention": n_req * 3 * cfg.n_layers, "ssd_scan": 0}
     if cfg.family == Family.HYBRID:
         return {"flash_attention": n_req * (cfg.n_layers // cfg.shared_attn_period),
                 "ssd_scan": n_req * cfg.n_layers}
     if cfg.family == Family.SSM:          # mamba1: no kernel on its path
         return {"flash_attention": 0, "ssd_scan": 0}
     return {"flash_attention": n_req * cfg.n_layers, "ssd_scan": 0}
+
+
+# (prompt tokens, new tokens, the pool's max_len) of each serve phase
+SERVE_LENGTHS = {"whisper-large-v3": (224, 32, 448)}
+SERVE_DEFAULT = (1024, 32, 1088)
 
 
 def phase_serve(cfg) -> dict:
@@ -557,9 +596,10 @@ def phase_serve(cfg) -> dict:
     from repro_torch.models.config import CellTuning
     from repro_torch.serve import EngineStats, Request, ServeEngine
 
-    n_req, prompt_len, new_tokens = 8, 1024, 32
+    n_req = 8
+    prompt_len, new_tokens, max_len = SERVE_LENGTHS.get(cfg.name, SERVE_DEFAULT)
     # the engine casts the weights to bf16 once; the float32 draws go after
-    engine = ServeEngine(cfg, _weights(cfg), slots=4, max_len=1088,
+    engine = ServeEngine(cfg, _weights(cfg), slots=4, max_len=max_len,
                          tuning=CellTuning(compute_dtype="bfloat16"))
     torch.cuda.empty_cache()
     rng = np.random.default_rng(1)
@@ -592,7 +632,7 @@ def phase_serve(cfg) -> dict:
     }
     decode_ticks = stats.ticks
     emit("serve", arch=cfg.name, dtype="bfloat16", requests=n_req,
-         prompt_len=prompt_len, new_tokens=new_tokens, slots=4, max_len=1088,
+         prompt_len=prompt_len, new_tokens=new_tokens, slots=4, max_len=max_len,
          launches=launches, expected_launches=expected,
          ticks=stats.ticks, decoded_tokens=stats.decoded_tokens,
          prefill_s=stats.prefill_s, decode_s=stats.decode_s, wall_s=wall,
@@ -771,6 +811,87 @@ def phase_decode_check(cfg, prompt_len=512) -> None:
          seconds=time.perf_counter() - t0, launches=dict(LAUNCHES), checks=checks)
     if not all(checks.values()):
         raise RuntimeError(f"decode check failed: {checks}")
+
+
+def phase_parity_encdec(cfg, prompt_lens) -> None:
+    """whisper in float32 at full width, kernel path against torch path, on
+    nonzero biases and random frames (0.02 N(0, 1), seeded; the engine's
+    zero frames would leave the biases alone to drive the encoder): per
+    request the encoder output and the prefill logits within 1e-3 and the
+    greedy tokens of ``serve_batch`` equal.  Then the decode check: the
+    prefill of the first prompt and one decode step (cross K/V from the
+    cache) against the full forward at the last position, within 2e-3."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.models.model import DECODE, PREFILL, TRAIN, encoder, forward
+    from repro_torch.models.ops import ShardCtx
+    from repro_torch.train.steps import make_prefill_step
+
+    params32 = _weights(cfg)
+    gen = torch.Generator().manual_seed(4)
+    for group, blocks in (("enc_layers", ("attn", "mlp")),
+                          ("layers", ("attn", "cross", "mlp"))):
+        for blk in blocks:
+            for key, w in params32[group][blk].items():
+                if key in ("bq", "bk", "bv", "b_up", "b_down"):
+                    w.copy_(0.1 * torch.randn(w.shape, generator=gen))
+    frames = (0.02 * torch.randn(len(prompt_lens), cfg.enc_len, cfg.d_model,
+                                 generator=gen)).cuda()
+    rng = np.random.default_rng(2)
+    prompts = [_prompts(rng, 1, n, cfg.vocab)[0] for n in prompt_lens]
+    tokens, logits, enc, launches = {}, {}, {}, {}
+    t0 = time.perf_counter()
+    for impl in ("kernel", "torch"):
+        ctx = ShardCtx(impl)
+        step = make_prefill_step(cfg, ctx)
+        reset_launches()
+        tokens[impl] = [serve_batch(cfg, params32, p[None], 8, enc_embeds=frames[i:i + 1],
+                                    ctx=ctx, device="cuda")[0, len(p):].tolist()
+                        for i, p in enumerate(prompts)]
+        launches[impl] = LAUNCHES["flash_attention"]
+        with torch.inference_mode():
+            enc[impl] = torch.cat([encoder(params32, cfg, frames[i:i + 1], ctx=ctx)
+                                   for i in range(len(prompts))])
+            logits[impl] = torch.cat([
+                step(params32, {"tokens": torch.as_tensor(p[None], device="cuda"),
+                                "enc_embeds": frames[i:i + 1]})[0]
+                for i, p in enumerate(prompts)])
+    enc_err = float((enc["kernel"] - enc["torch"]).abs().max())
+    err = float((logits["kernel"] - logits["torch"]).abs().max())
+
+    toks = torch.as_tensor(prompts[0][None], device="cuda")
+    f0 = frames[:1]
+    with torch.inference_mode():
+        pre, cache, _ = forward(params32, cfg, {"tokens": toks, "enc_embeds": f0},
+                                mode=PREFILL)
+        for key in ("k", "v"):
+            cache[key] = torch.nn.functional.pad(cache[key], (0, 0, 0, 0, 0, 8))
+        nxt = torch.argmax(pre[:, -1, : cfg.vocab], dim=-1)[:, None]
+        dec, _, _ = forward(params32, cfg, {"tokens": nxt}, mode=DECODE, cache=cache)
+        full, _, _ = forward(params32, cfg, {"tokens": torch.cat([toks, nxt], 1),
+                                             "enc_embeds": f0}, mode=TRAIN)
+    torch.cuda.synchronize()
+    dec_err = float((dec[:, -1] - full[:, -1]).abs().max())
+    checks = {"encoder_within_1e-3": enc_err <= 1e-3,
+              "logits_within_1e-3": err <= 1e-3,
+              "tokens_equal": tokens["kernel"] == tokens["torch"],
+              "logits_finite": bool(torch.isfinite(logits["kernel"]).all()),
+              "kernel_path_launched": launches["kernel"] == 3 * cfg.n_layers * len(prompts),
+              "torch_path_launched_none": launches["torch"] == 0,
+              "decode_within_2e-3": dec_err <= 2e-3,
+              "decode_finite": bool(torch.isfinite(dec).all() and torch.isfinite(full).all())}
+    emit("parity", arch=cfg.name, dtype="float32", requests=len(prompts),
+         prompt_lens=list(prompt_lens), new_tokens=8, enc_len=cfg.enc_len,
+         encoder_max_abs_err=enc_err, encoder_max_abs=float(enc["torch"].abs().max()),
+         prefill_logits_max_abs_err=err, tol=1e-3, flash_launches=launches,
+         decode_vs_full_max_abs_err=dec_err, decode_tol=2e-3,
+         logits_max_abs=float(full[:, -1].abs().max()),
+         seconds=time.perf_counter() - t0, tokens=tokens["kernel"], checks=checks)
+    if not all(checks.values()):
+        raise RuntimeError(f"parity checks failed: {checks}")
 
 
 # the planner phase: boutique's scenarios through the pipeline under each
@@ -1836,7 +1957,7 @@ def main() -> int:
 
     smi, name, peaks = timed("device", phase_device)
     timed("build", phase_build)
-    flash, flash_zamba, flash_granite = timed("kernel", phase_kernel, peaks)
+    flash, flash_at = timed("kernel", phase_kernel, peaks)
     ssd = timed("ssd", phase_ssd, peaks)
 
     launches = {}
@@ -1844,7 +1965,8 @@ def main() -> int:
             ("qwen2-1.5b", "parity", phase_parity, (512, 512)),
             ("zamba2-1.2b", "parity", phase_parity, (512, 500)),
             ("granite-moe-3b-a800m", "parity", phase_parity_moe, (512, 512)),
-            ("falcon-mamba-7b", "decode_check", phase_decode_check, 512)):
+            ("falcon-mamba-7b", "decode_check", phase_decode_check, 512),
+            ("whisper-large-v3", "parity", phase_parity_encdec, (224, 200))):
         cfg = get_arch(arch)
         launches[arch] = timed(f"serve {arch}", phase_serve, cfg)
         torch.cuda.empty_cache()
@@ -1858,9 +1980,7 @@ def main() -> int:
     emit("seconds", **seconds)
 
     entries = []
-    for spec, row, also in ((FLASH, flash, {"at_zamba2": flash_zamba,
-                                            "at_granite": flash_granite}),
-                            (SSD, ssd, {})):
+    for spec, row, also in ((FLASH, flash, flash_at), (SSD, ssd, {})):
         per_path = {arch: n[spec["name"]] for arch, n in launches.items()}
         entry = dict(spec, launches=sum(per_path.values()),
                      launches_per_path=per_path, max_abs_err=row["max_abs_err"],

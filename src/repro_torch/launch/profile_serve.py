@@ -2,10 +2,13 @@
 
   PYTHONPATH=src python -m repro_torch.launch.profile_serve --full
   PYTHONPATH=src python -m repro_torch.launch.profile_serve --arch falcon-mamba-7b --full
+  PYTHONPATH=src python -m repro_torch.launch.profile_serve --arch whisper-large-v3 \
+      --full --prompt-len 224 --max-len 448
 
 Builds ``ServeEngine`` (bf16, seeded random weights, 4 slots), warms it
-up, then traces one admission (a B=1 prefill of 1024 tokens) and 8 decode
-ticks of the full pool with ``torch.profiler``, tracing the device only
+up, then traces one admission (a B=1 prefill of ``--prompt-len`` tokens,
+1024 by default; whisper's also runs its encoder) and 8 decode ticks of
+the full pool with ``torch.profiler``, tracing the device only
 (``repro_torch.obs.profile.profile_window``).  For each window it prints
 one JSON line: the host-clock wall time, the summed time of the device
 kernels, the device's idle share (1 - kernel time / wall time; one stream,
@@ -36,8 +39,11 @@ def main(argv: Optional[list] = None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=sorted(ARCHS), default="qwen2-1.5b")
     ap.add_argument("--full", action="store_true")
+    ap.add_argument("--prompt-len", type=int, default=1024)
+    ap.add_argument("--max-len", type=int, default=None,
+                    help="the pool's length; default prompt-len + 24")
     args = ap.parse_args(argv)
-    slots, prompt_len, ticks, top = 4, 1024, 8, 8
+    slots, prompt_len, ticks, top = 4, args.prompt_len, 8, 8
 
     device = resolve_device("cuda")
     smi = subprocess.run(
@@ -46,7 +52,9 @@ def main(argv: Optional[list] = None) -> None:
     cfg = get_arch(args.arch)
     if not args.full:
         cfg = reduced(cfg)
-    max_len = prompt_len + 2 * ticks + 8
+    max_len = args.max_len or prompt_len + 2 * ticks + 8
+    if max_len < prompt_len + 2 * ticks + 8:
+        raise ValueError(f"--max-len {max_len} < prompt-len + {2 * ticks + 8}")
     engine = ServeEngine(
         cfg, init_from_schema(0, build_schema(cfg), torch.float32, device),
         slots=slots, max_len=max_len,
@@ -65,7 +73,7 @@ def main(argv: Optional[list] = None) -> None:
     engine.tick()
     submit(slots, 10 * ticks)
     print(json.dumps({"card": smi, "arch": cfg.name, "slots": slots,
-                      "prompt_len": prompt_len}), flush=True)
+                      "prompt_len": prompt_len, "max_len": max_len}), flush=True)
     print(json.dumps(profile_window("prefill", engine._admit, top)), flush=True)
 
     def decode():

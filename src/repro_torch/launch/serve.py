@@ -5,10 +5,12 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b --full
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-moe-3b-a800m --full
   PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b --full
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-large-v3 --full
 
 Without ``--full`` it serves the reduced twin of the architecture.
 ``--device cpu`` runs on the CPU; without a card and without that flag it
-raises.  The weights are random, seeded by ``--seed``.
+raises.  The weights are random, seeded by ``--seed``; so are whisper's
+frame embeddings (its audio frontend is a stub).
 """
 from __future__ import annotations
 
@@ -22,27 +24,43 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.registry import ARCHS, get_arch
 from repro_torch.models.model import SEQ_KEYS, cast_params
+from repro_torch.models.ops import NOSHARD, ShardCtx
 from repro_torch.models.schema import build_schema
 from repro_torch.models.sharding import init_from_schema
 from repro_torch.models.testing import reduced
 from repro_torch.train.steps import make_prefill_step, make_serve_step
 
 
-def serve_batch(cfg, params, prompts, gen_tokens, *, device=None) -> torch.Tensor:
+def serve_batch(cfg, params, prompts, gen_tokens, *, enc_embeds=None, seed=0,
+                ctx: ShardCtx = NOSHARD, device=None) -> torch.Tensor:
     """prompts: (B, S) integer tokens.  Returns (B, S + gen_tokens) int64 on
     the device; greedy decoding in lockstep, float32 as in
-    ``repro.launch.serve.serve_batch``."""
+    ``repro.launch.serve.serve_batch``.
+
+    The encoder-decoder family reads ``enc_embeds`` (B, enc_len, d), a numpy
+    array or a tensor; without it the frames are 0.02 N(0, 1) drawn from a
+    ``torch.Generator`` seeded with ``seed`` (the JAX function draws the same
+    distribution from ``jax.random``, which gives other numbers)."""
     device = resolve_device(device)
     params = cast_params(params, torch.float32, device)
     prompts = torch.as_tensor(np.asarray(prompts), device=device).long()
     B, S = prompts.shape
-    prefill = make_prefill_step(cfg)
-    decode = make_serve_step(cfg)
+    prefill = make_prefill_step(cfg, ctx)
+    decode = make_serve_step(cfg, ctx)
 
     max_len = S + gen_tokens
+    batch = {"tokens": prompts}
+    if cfg.enc_len:
+        if enc_embeds is None:
+            enc_embeds = 0.02 * torch.randn(
+                B, cfg.enc_len, cfg.d_model,
+                generator=torch.Generator().manual_seed(seed))
+        batch["enc_embeds"] = torch.as_tensor(enc_embeds, dtype=torch.float32,
+                                              device=device)
     # allocate the sequence leaves at full serving length, then splice the
-    # prefill output; state leaves (mamba conv/SSM) carry through as they are
-    last_logits, cache = prefill(params, {"tokens": prompts})
+    # prefill output; state leaves (mamba conv/SSM) and the cross K/V carry
+    # through as they are
+    last_logits, cache = prefill(params, batch)
     for key in SEQ_KEYS:
         if key in cache:
             pre = cache[key]
@@ -82,7 +100,7 @@ def main(argv: Optional[list] = None) -> None:
         0, cfg.vocab, size=(args.batch, args.prompt_len))
 
     t0 = time.perf_counter()
-    seqs = serve_batch(cfg, params, prompts, args.gen, device=device)
+    seqs = serve_batch(cfg, params, prompts, args.gen, seed=args.seed, device=device)
     seqs = seqs.cpu()
     dt = time.perf_counter() - t0
     if seqs.shape != (args.batch, args.prompt_len + args.gen):

@@ -1,8 +1,10 @@
 """Model forward for the DENSE family (qwen2, yi, nemotron; also VLM
 backbones without their frontend stub), the MOE family (granite-moe,
 phi3.5-moe: the dense decoder with a mixture-of-experts MLP), the SSM
-family (falcon-mamba: mamba1 layers) and the HYBRID family (zamba2: a
-mamba2 backbone with one shared attention+MLP block).
+family (falcon-mamba: mamba1 layers), the HYBRID family (zamba2: a
+mamba2 backbone with one shared attention+MLP block) and the ENC_DEC /
+AUDIO family (whisper: an encoder over stub frame embeddings and a
+decoder with cross-attention).
 
 Three modes share one code path per family:
   * train    — full-sequence forward, no cache;
@@ -12,9 +14,10 @@ Three modes share one code path per family:
 Layer weights are stacked along a leading L axis, as in ``repro``; the layer
 stack is a Python loop over that axis (the JAX package's ``lax.scan``).
 Caches carry the same leading L axis (the shared block's KV cache: one
-entry per application point).  Decode updates the cache's tensors IN PLACE
-(k/v at the new position; the mamba conv and SSM states whole) and
-returns them, where the JAX package returns updated copies.
+entry per application point; whisper's cross K/V: one per decoder layer,
+written at prefill and only read by decode).  Decode updates the cache's
+tensors IN PLACE (k/v at the new position; the mamba conv and SSM states
+whole) and returns them, where the JAX package returns updated copies.
 
 Parameters must already be in the compute dtype: ``cast_params`` casts them
 once, where ``repro.models.model.forward`` casts on every call (which in
@@ -40,12 +43,6 @@ TRAIN, PREFILL, DECODE = "train", "prefill", "decode"
 # others are per-layer states, written whole
 SEQ_KEYS = ("k", "v", "shared_k", "shared_v")
 
-# families without a stack here yet (see ``_STACKS``)
-_ROADMAP_ITEM = {
-    Family.ENC_DEC: "ROADMAP, queue 1 'Model stack': encoder-decoder stack",
-    Family.AUDIO: "ROADMAP, queue 1 'Model stack': encoder-decoder stack",
-}
-
 
 def cast_params(params, dtype: torch.dtype, device=None):
     """Float32 leaves to ``dtype`` (others kept), all leaves on ``device``.
@@ -69,26 +66,33 @@ def attention_block(
     ctx: ShardCtx,
     *,
     mode: str,
+    causal: bool = True,
+    use_rope: bool = True,
     kv_cache: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
+    cross_states: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """Residual causal self-attention block.
+    """Residual attention block: self-attention over ``x``, or
+    cross-attention when ``cross_states`` (B, Sk, d) gives k/v.
 
-    decode: ``kv_cache`` = (k, v, pos), k/v (B, S_max, KV, hd) views of one
-    layer of the pooled cache.  The new token's k/v are written into them
-    IN PLACE (the JAX package returns updated copies).
+    decode (self-attention only): ``kv_cache`` = (k, v, pos), k/v
+    (B, S_max, KV, hd) views of one layer of the pooled cache.  The new
+    token's k/v are written into them IN PLACE (the JAX package returns
+    updated copies).  Cross-attention decode reads its cached k/v in
+    ``_cross_from_cache``.
     Returns (residual output, (k, v) for the cache).
     """
     h = rms_norm(x, p["ln"], cfg.norm_eps)
+    src = h if cross_states is None else cross_states
     q = _proj(h, p["wq"])
-    k = _proj(h, p["wk"])
-    v = _proj(h, p["wv"])
+    k = _proj(src, p["wk"])
+    v = _proj(src, p["wv"])
     if cfg.qkv_bias:
         q = q + p["bq"]
         k = k + p["bk"]
         v = v + p["bv"]
     S = q.shape[1]
 
-    if mode == DECODE:
+    if mode == DECODE and cross_states is None:
         # ``pos`` is a scalar (lockstep batch) or a (B,) vector (continuous
         # batching: each slot at its own sequence position).
         kc, vc, pos = kv_cache
@@ -107,15 +111,15 @@ def attention_block(
         out = attention_reference(q, kc, vc, causal=False, kv_len=pos + S)
         new_kv = (kc, vc)
     else:
-        positions = torch.arange(S, device=x.device)
-        q = rotary(q, positions, cfg.rope_theta)
-        k = rotary(k, positions, cfg.rope_theta)
+        if use_rope:
+            q = rotary(q, torch.arange(S, device=x.device), cfg.rope_theta)
+            k = rotary(k, torch.arange(k.shape[1], device=x.device), cfg.rope_theta)
         if ctx.attention_impl == "kernel":
             from repro_torch.kernels.ops import flash_attention
 
-            out = flash_attention(q, k, v, causal=True).to(q.dtype)
+            out = flash_attention(q, k, v, causal=causal).to(q.dtype)
         else:
-            out = attention_chunked(q, k, v, causal=True)
+            out = attention_chunked(q, k, v, causal=causal)
         new_kv = (k, v)
     B = x.shape[0]
     proj = out.reshape(B, S, -1) @ p["wo"].reshape(-1, cfg.d_model)
@@ -139,9 +143,10 @@ def mlp_block(p: Dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     return x + out
 
 
-def _layer(params: Dict, i: int) -> Dict:
+def _layer(stack: Dict, i: int) -> Dict:
+    """Layer i of a ``{block: {name: [L, ...]}}`` stack."""
     return {blk: {name: w[i] for name, w in ws.items()}
-            for blk, ws in params["layers"].items()}
+            for blk, ws in stack.items()}
 
 
 def _dense_stack(params, h, cfg, ctx, cache, *, mode, with_aux):
@@ -152,7 +157,7 @@ def _dense_stack(params, h, cfg, ctx, cache, *, mode, with_aux):
     pos0 = cache["pos"] if cache is not None else None
     ks, vs, auxes = [], [], []
     for i in range(cfg.n_layers):
-        lp = _layer(params, i)
+        lp = _layer(params["layers"], i)
         kv = (cache["k"][i], cache["v"][i], pos0) if cache is not None else None
         h, (k, v) = attention_block(lp["attn"], h, cfg, ctx, mode=mode, kv_cache=kv)
         if is_moe:
@@ -242,9 +247,76 @@ def _hybrid_stack(params, h, cfg, ctx, cache, *, mode, with_aux):
     return h, new_cache, {}
 
 
+def encoder(params: Dict, cfg: ArchConfig, enc_embeds: torch.Tensor, *,
+            ctx: ShardCtx = NOSHARD) -> torch.Tensor:
+    """whisper's encoder over stub frame embeddings (B, enc_len, d):
+    non-causal self-attention with rope, then the GELU MLP, per layer;
+    then ``enc_final_norm``."""
+    e = enc_embeds
+    for i in range(cfg.n_layers):
+        lp = _layer(params["enc_layers"], i)
+        e, _ = attention_block(lp["attn"], e, cfg, ctx, mode=TRAIN, causal=False)
+        e = mlp_block(lp["mlp"], e, cfg)
+    return rms_norm(e, params["enc_final_norm"], cfg.norm_eps)
+
+
+def _cross_from_cache(p: Dict, x: torch.Tensor, cfg: ArchConfig,
+                      ck: torch.Tensor, cv: torch.Tensor) -> torch.Tensor:
+    """Residual cross-attention against the cached encoder K/V (decode):
+    every one of the enc_len keys, no rope, no mask."""
+    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    q = _proj(h, p["wq"])
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+    out = attention_reference(q, ck, cv, causal=False)
+    return x + out.reshape(*x.shape[:2], -1) @ p["wo"].reshape(-1, cfg.d_model)
+
+
+def _encdec_stack(params, h, cfg, ctx, cache, *, mode, with_aux, enc_embeds=None):
+    """whisper: the encoder (train and prefill only), then per decoder layer
+    causal self-attention, non-causal cross-attention over the encoder
+    output and the MLP.  Decode never re-runs the encoder: it reads the
+    cross K/V that prefill wrote into the cache."""
+    pos0 = cache["pos"] if cache is not None else None
+    enc_out = None
+    if mode != DECODE:
+        if enc_embeds is None:
+            raise ValueError(f"{cfg.name} needs batch['enc_embeds'] in {mode} mode")
+        enc_out = encoder(params, cfg, enc_embeds, ctx=ctx)
+    ks, vs, cks, cvs = [], [], [], []
+    for i in range(cfg.n_layers):
+        lp = _layer(params["layers"], i)
+        kv = (cache["k"][i], cache["v"][i], pos0) if cache is not None else None
+        h, (k, v) = attention_block(lp["attn"], h, cfg, ctx, mode=mode, kv_cache=kv)
+        if mode == DECODE:
+            h = _cross_from_cache(lp["cross"], h, cfg, cache["cross_k"][i],
+                                  cache["cross_v"][i])
+        else:
+            h, (ck, cv) = attention_block(lp["cross"], h, cfg, ctx, mode=mode,
+                                          causal=False, use_rope=False,
+                                          cross_states=enc_out)
+        h = mlp_block(lp["mlp"], h, cfg)
+        if mode == PREFILL:
+            ks.append(k)
+            vs.append(v)
+            cks.append(ck)
+            cvs.append(cv)
+    new_cache = None
+    if mode == PREFILL:
+        new_cache = {"k": torch.stack(ks), "v": torch.stack(vs),
+                     "cross_k": torch.stack(cks), "cross_v": torch.stack(cvs),
+                     "pos": torch.tensor(h.shape[1], dtype=torch.int32,
+                                         device=h.device)}
+    elif mode == DECODE:
+        # self k/v were updated in place; cross k/v are read only
+        new_cache = dict(cache, pos=pos0 + 1)
+    return h, new_cache, {}
+
+
 _STACKS = {Family.DENSE: _dense_stack, Family.VLM: _dense_stack,
            Family.MOE: _dense_stack, Family.SSM: _ssm_stack,
-           Family.HYBRID: _hybrid_stack}
+           Family.HYBRID: _hybrid_stack, Family.ENC_DEC: _encdec_stack,
+           Family.AUDIO: _encdec_stack}
 
 
 def backbone(params: Dict, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *,
@@ -252,17 +324,19 @@ def backbone(params: Dict, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *,
              cache: Optional[Cache] = None,
              with_aux: bool = False) -> Tuple[torch.Tensor, Optional[Cache], Dict]:
     """Embedding + layer stack + final norm: (hidden (B, S, d), cache, aux).
-    ``aux`` holds the MoE aux losses when ``with_aux`` (else ``{}``)."""
+    ``aux`` holds the MoE aux losses when ``with_aux`` (else ``{}``).
+    The encoder-decoder family reads ``batch["enc_embeds"]`` (B, enc_len,
+    d) in train and prefill mode, cast to the parameters' dtype."""
     if (cache is not None) != (mode == DECODE):
         raise ValueError(f"mode {mode!r} with cache={cache is not None}: "
                          "decode needs a cache and only decode takes one")
-    if cfg.family not in _STACKS:
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.family.value}) is not ported yet: "
-            f"{_ROADMAP_ITEM[cfg.family]}")
+    extra = {}
+    if cfg.family in (Family.ENC_DEC, Family.AUDIO):
+        enc = batch.get("enc_embeds")
+        extra["enc_embeds"] = None if enc is None else enc.to(params["embed"].dtype)
     h = params["embed"][batch["tokens"]]
     h, new_cache, aux = _STACKS[cfg.family](params, h, cfg, ctx, cache,
-                                            mode=mode, with_aux=with_aux)
+                                            mode=mode, with_aux=with_aux, **extra)
     return rms_norm(h, params["final_norm"], cfg.norm_eps), new_cache, aux
 
 
@@ -289,11 +363,8 @@ def forward(
 
 
 def cache_schema(cfg: ArchConfig, batch: int, max_len: int, enc_len: int = 0) -> Dict:
-    """Decode-cache schema; leading L axis matches the layer stack."""
-    if cfg.family not in _STACKS:
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.family.value}) is not ported yet: "
-            f"{_ROADMAP_ITEM[cfg.family]}")
+    """Decode-cache schema; leading L axis matches the layer stack.  The
+    encoder-decoder family adds its cross K/V at ``enc_len``."""
     L, KV, hd = cfg.n_layers, cfg.n_kv_heads, cfg.hd
     pos = PS((), (), init="zeros", dtype=torch.int32)
     if cfg.family == Family.HYBRID:
@@ -329,4 +400,8 @@ def cache_schema(cfg: ArchConfig, batch: int, max_len: int, enc_len: int = 0) ->
         }
     kv = PS((L, batch, max_len, KV, hd),
             ("layers", "batch", "seq", "heads_kv", "hd_cache"), init="zeros")
+    if cfg.family in (Family.ENC_DEC, Family.AUDIO):
+        cross = PS((L, batch, enc_len, KV, hd),
+                   ("layers", "batch", "seq", "heads_kv", "hd_cache"), init="zeros")
+        return {"k": kv, "v": kv, "cross_k": cross, "cross_v": cross, "pos": pos}
     return {"k": kv, "v": kv, "pos": pos}

@@ -9,7 +9,11 @@ max tokens) free their slot immediately for the next queued request.
 The cache pool is allocated once, in the compute dtype (the mamba SSM
 states in float32), with the layouts of ``cache_schema``: ``(L, B, S_max,
 KV, hd)`` for k/v, and per-layer state lanes for the SSM and hybrid
-families, which an admission writes whole.  Idle
+families, which an admission writes whole.  The encoder-decoder family
+(whisper) prefills each request over zero frame embeddings (the JAX
+engine's; the frontend is a stub) and writes its cross K/V lanes
+``(L, B, enc_len, KV, hd)`` whole, as they are enc_len long in both the
+prefill and the pool.  Idle
 slots decode a stale token at position 0 of their own lane, which the next
 admission overwrites, as in ``repro.serve.engine``.
 """
@@ -105,6 +109,9 @@ class ServeEngine:
         self.queue: Deque[Request] = deque()
         self.stats = EngineStats()
         self._next_tok = np.zeros(slots, np.int64)
+        # the encoder-decoder family's frames: zeros, allocated once
+        self._enc_embeds = torch.zeros(1, cfg.enc_len, cfg.d_model, dtype=self.dtype,
+                                       device=self.device) if cfg.enc_len else None
 
     # -- admission -----------------------------------------------------------
 
@@ -121,8 +128,11 @@ class ServeEngine:
             req = self.queue.popleft()
             prompt = torch.as_tensor(np.asarray(req.prompt, np.int64)[None, :],
                                      device=self.device)            # (1, S)
+            batch = {"tokens": prompt}
+            if self._enc_embeds is not None:
+                batch["enc_embeds"] = self._enc_embeds
             t0 = time.perf_counter()
-            last_logits, cache1 = self._prefill(self.params, {"tokens": prompt})
+            last_logits, cache1 = self._prefill(self.params, batch)
             self._write_slot(slot, cache1, prompt.shape[1])
             self._next_tok[slot] = int(torch.argmax(last_logits[0, : self.cfg.vocab]))
             self.stats.prefill_s += time.perf_counter() - t0
@@ -134,7 +144,7 @@ class ServeEngine:
     def _write_slot(self, slot: int, cache1, seq_len: int) -> None:
         """Copy a single-sequence (B=1) prefill cache into the pool lane:
         sequence leaves up to ``seq_len`` with the rest of the lane zeroed,
-        state leaves whole."""
+        state leaves (and the cross K/V) whole."""
         for key, pool in self.cache.items():
             if key == "pos":
                 continue

@@ -18,9 +18,11 @@ from repro_torch.models.ops import NOSHARD, ShardCtx
 def make_prefill_step(cfg: ArchConfig, ctx: ShardCtx = NOSHARD) -> Callable:
     """prefill(params, batch) -> (last-token logits (B, Vp), cache).
 
-    Only the last position goes through the vocab head: the logits are
-    the same as the JAX step's ``logits[:, -1]`` without the (B, S, Vp)
-    tensor it builds first."""
+    ``batch`` holds ``tokens`` and, for the encoder-decoder family,
+    ``enc_embeds`` (B, enc_len, d), which ``backbone`` reads.  Only the
+    last position goes through the vocab head: the logits are the same as
+    the JAX step's ``logits[:, -1]`` without the (B, S, Vp) tensor it
+    builds first."""
 
     @torch.inference_mode()
     def prefill_step(params, batch):

@@ -648,3 +648,65 @@ def test_green_placement_card_decides_as_cpu(card):
     assert [dataclasses.replace(r, **strip) for r in res.ticks] == \
         [dataclasses.replace(r, **strip) for r in res_c.ticks]
     assert res.final_assignment == res_c.final_assignment
+
+
+# --------------------------------------------------------------------------
+# the encoder-decoder family (whisper): flash's non-causal route
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("Sq,causal", [(1536, False), (224, False), (224, True)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_at_whisper_shapes(card, Sq, causal, dtype):
+    """whisper-large-v3's three attentions, 20/20 heads at hd 64: the
+    encoder (1536 frames, non-causal), the decoder's cross-attention (224
+    prompt tokens over 1536 frames, non-causal) and its self-attention
+    (224, causal)."""
+    Sk = Sq if causal else 1536
+    reset_launches()
+    _flash_check(card, 1, Sq, Sk, 20, 20, 64, causal, dtype, seed=Sq + causal)
+    assert LAUNCHES["flash_attention"] == 1
+
+
+def test_whisper_engine_on_card_matches_cpu(card):
+    """Reduced whisper (attention rescaled to its contracted width, nonzero
+    biases) in float32: prefill logits and all four cache leaves within
+    1e-4 of their magnitude of the CPU's, equal greedy engine tokens, and
+    the flash kernel three times per decoder layer and admission (encoder,
+    decoder self, cross)."""
+    import math
+
+    from repro_torch.models import model as tm
+
+    cfg, cpu, _ = _reduced_on_both("whisper-large-v3", card)
+    g = torch.Generator().manual_seed(2)
+    for group, blocks in (("enc_layers", ("attn",)), ("layers", ("attn", "cross"))):
+        for blk in blocks:
+            attn = cpu[group][blk]
+            d, H, hd = attn["wq"].shape[-3:]
+            attn["wq"].mul_(math.sqrt(H / d))
+            attn["wk"].mul_(math.sqrt(H / d))
+            attn["wv"].mul_(math.sqrt(H / d))
+            attn["wo"].mul_(math.sqrt(1.0 / H))
+            for key in ("bq", "bk", "bv"):
+                attn[key].copy_(0.1 * torch.randn(attn[key].shape, generator=g))
+        for key in ("b_up", "b_down"):
+            cpu[group]["mlp"][key].copy_(
+                0.1 * torch.randn(cpu[group]["mlp"][key].shape, generator=g))
+    gpu = tm.cast_params(cpu, torch.float32, card)
+    rng = np.random.default_rng(3)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab, size=(2, 13)))
+    frames = 0.02 * torch.randn(2, cfg.enc_len, cfg.d_model, generator=g)
+    ref, ref_cache, _ = tm.forward(cpu, cfg, {"tokens": tokens, "enc_embeds": frames},
+                                   mode=tm.PREFILL)
+    out, cache, _ = tm.forward(gpu, cfg, {"tokens": tokens.to(card),
+                                          "enc_embeds": frames.to(card)}, mode=tm.PREFILL)
+    for got, want in [(out, ref)] + [(cache[k], ref_cache[k])
+                                     for k in ("k", "v", "cross_k", "cross_v")]:
+        scale = max(1.0, float(want.abs().max()))
+        torch.testing.assert_close(got.cpu(), want, atol=1e-4 * scale, rtol=1e-4)
+    prompts = [rng.integers(0, cfg.vocab, size=n) for n in (12, 9, 14)]
+    reset_launches()
+    on_card = _engine_tokens(cfg, gpu, card, prompts)
+    assert LAUNCHES == {"flash_attention": 3 * 3 * cfg.n_layers, "ssd_scan": 0}
+    assert on_card == _engine_tokens(cfg, cpu, "cpu", prompts)

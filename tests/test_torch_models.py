@@ -143,13 +143,6 @@ def test_init_is_seeded():
     assert not torch.equal(a["embed"], c["embed"])
 
 
-@pytest.mark.parametrize("name", ["whisper-large-v3"])
-def test_unported_family_raises(name):
-    cfg = reduced(ARCHS[name])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.forward({}, cfg, {"tokens": torch.zeros(1, 4, dtype=torch.long)})
-
-
 # --------------------------------------------------------------------------
 # dense forward: train, prefill, decode
 # --------------------------------------------------------------------------
