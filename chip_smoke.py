@@ -58,7 +58,30 @@ Phases, each printing one JSON line:
                tokens, 8 new tokens: encoder output and prefill logits
                within 1e-3, equal greedy tokens; and prefill + one decode
                step against the full forward within 2e-3.
-  7. planner — the float64 planner (no custom kernel): boutique scenarios
+  7. train   — after the model phases: (c) on qwen2-1.5b's seeded weights
+               at full width (the training CLI's ``--full`` init, attention
+               rescaled) and its first batch, ``loss_fn`` under no_grad in
+               float32 with the kernel context and with TRAIN_CTX: within
+               1e-4 relative, exactly 28 flash launches; (a) 6 steps of the
+               CLI's full-width step (``launch.train.build``: float32,
+               remat, 2 micro-batches, 8 x 512 tokens), per step loss,
+               grad_norm, lr, ms, tokens/s and the model-FLOP share of the
+               float32 peak (8 N tokens: forward, backward, remat forward),
+               peak memory, then one more step under torch.profiler
+               (device trace only); (b) the same weights in bfloat16
+               compute for 3 steps and one profiled, step-0 loss within
+               2e-2 relative of (a)'s; (c) again at zamba2's reduced twin (ssd and flash
+               counted); (d) every registry arch's reduced twin, 3 steps on
+               the card and on the CPU from the same weights: loss within
+               1e-5 relative, grad_norm within 1e-4, MoE routing flips
+               counted (no comparison from the first flip on); (e) reduced
+               qwen2 for 12 steps through RestartManager (a checkpoint
+               every 4, a failure injected at step 6) against an
+               uninterrupted run: final params and optimizer state within
+               1e-6 (bit-equality printed).  Fails on a non-finite loss, a
+               leaf that did not move in (a), or any flash or ssd launch in
+               a train step.
+  8. planner — the float64 planner (no custom kernel): boutique scenarios
                1-3 through GreenConstraintPipeline.run -> problem_for ->
                GreenScheduler.plan under the green, baseline and oracle
                profiles; synth(500, 200) dense at B=1 and B=8 and
@@ -84,7 +107,7 @@ Phases, each printing one JSON line:
                bitwise repeatable, a card plan breaks capacity, or card
                and CPU decide differently on boutique or a dyadic
                problem.
-  8. continuum — the adaptive loop (ContinuumRuntime.run: pipeline.run ->
+  9. continuum — the adaptive loop (ContinuumRuntime.run: pipeline.run ->
                problem_for -> fault masking -> WhatIfPlanner.evaluate over
                B forecast branches -> hysteresis switch -> accounting) on
                the card and on the CPU with the same inputs: (a) the
@@ -108,7 +131,7 @@ Phases, each printing one JSON line:
                CPU, when (b) records a placement violation, when (b)'s
                ledger does not sum bit-equal to its records, or when
                (b)'s alerts differ between card and CPU.
-  9. replay  — the fused trace replay (ContinuumRuntime.run_scanned: the
+ 10. replay  — the fused trace replay (ContinuumRuntime.run_scanned: the
                trace staged on the host once, the decision tick rolled on
                the device) on the card and on the CPU: (d) (a)'s week
                under the adaptive and oracle policies; (e) the faulty week
@@ -135,7 +158,7 @@ Phases, each printing one JSON line:
                (e)'s ledger or alerts differ from the eager run's, or when
                (f)'s totals differ card vs CPU, or at scale 1.0 from (a)'s
                adaptive week, by more than rel 1e-12.
- 10. fleet   — the multi-tenant planner (fleet.plan_many: one
+ 11. fleet   — the multi-tenant planner (fleet.plan_many: one
                plan_branches call per shape group and chunk, the apps on
                its row axis) and FleetRuntime, at
                benchmarks/fleet_scale.py's sizes: (a) 100 apps of
@@ -162,7 +185,7 @@ Phases, each printing one JSON line:
                bill differs from its tenant's plain sum of accounted
                ticks, a tick breaks capacity, or (c) under faults meets
                no emergency.
- 11. green   — GreenPlacement (launch/green_placement.py) with
+ 12. green   — GreenPlacement (launch/green_placement.py) with
                device="cuda" and device="cpu": place on the four job sets
                of tests/test_green_placement.py, then run_continuum on
                tests/test_continuum.py's job set for 6 and 168 ticks.  Per
@@ -171,7 +194,9 @@ Phases, each printing one JSON line:
                constraint, a stat, a tick record (timings and
                ``compiles`` aside) or the final assignment differs.
 
-Then one line with each phase's seconds, one line {"kernels": [...]}, the
+Then one line with each phase's seconds, one line {"kernels": [...]} (each
+kernel's ``launches_per_path`` also counts the train steps' launches under
+"train": none), the
 nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Any failed check raises, so the script exits
 non-zero and prints no result; so does a run without a card or outside a
@@ -525,21 +550,9 @@ def _prompts(rng, n, length, vocab):
     return [rng.integers(0, vocab, size=length).astype("int64") for _ in range(n)]
 
 
-def _rescale_attention(attn) -> None:
-    """Scale one attention block's projections, stacked (L, ...) or not, from
-    the reference init's 1/sqrt(shape[-2]) to 1/sqrt(contracted width)."""
-    import math
-
-    d, H, hd = attn["wq"].shape[-3:]
-    KV = attn["wk"].shape[-2]
-    attn["wq"].mul_(math.sqrt(H / d))
-    attn["wk"].mul_(math.sqrt(KV / d))
-    attn["wv"].mul_(math.sqrt(KV / d))
-    attn["wo"].mul_(math.sqrt(hd / (H * hd)))
-
-
-def _weights(cfg):
-    """Seeded random float32 weights on the card, attention well conditioned.
+def _weights(cfg, device="cuda"):
+    """Seeded random float32 weights on ``device`` (the card), attention
+    well conditioned: the training CLI's ``--full`` weights at ``--seed 0``.
 
     ``init_from_schema`` follows the JAX package and scales each weight by
     1/sqrt(shape[-2]).  For the head-structured projections that is the
@@ -551,19 +564,17 @@ def _weights(cfg):
     apart, different tokens) while the kernel agrees with its plain
     version.  Rescaling the projections of every attention block (the
     stacked layers', zamba2's shared one, whisper's encoder and cross
-    blocks) to their contracted width keeps the parity phase a test of the
-    kernels.
+    blocks) to their contracted width (``launch.train.rescale_attention``)
+    keeps the parity phase a test of the kernels.
     """
     import torch
 
+    from repro_torch.launch.train import rescale_attention
     from repro_torch.models.schema import build_schema
     from repro_torch.models.sharding import init_from_schema
 
-    params = init_from_schema(0, build_schema(cfg), torch.float32, "cuda")
-    for group in ("layers", "shared", "enc_layers"):
-        for blk in ("attn", "cross"):
-            if blk in params.get(group, {}):
-                _rescale_attention(params[group][blk])
+    params = init_from_schema(0, build_schema(cfg), torch.float32, device)
+    rescale_attention(params)
     return params
 
 
@@ -892,6 +903,356 @@ def phase_parity_encdec(cfg, prompt_lens) -> None:
          seconds=time.perf_counter() - t0, tokens=tokens["kernel"], checks=checks)
     if not all(checks.values()):
         raise RuntimeError(f"parity checks failed: {checks}")
+
+
+# the train phase: the CLI's full-width qwen2-1.5b step (launch/train.py's
+# build at --full), float32 and bfloat16, the kernel route under no_grad,
+# every family's reduced twin card against CPU, and a restart
+TRAIN_ARCH = "qwen2-1.5b"
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO = 512, 8, 2
+TRAIN_LR = 3e-3                # the CLI's default
+TRAIN_STEPS = 6                # (a), float32, then one profiled step
+TRAIN_BF16_STEPS = 3           # (b)
+TRAIN_TWIN_STEPS = 3           # (d), each reduced twin on the card and the CPU
+RESTART_STEPS, RESTART_EVERY, RESTART_FAIL_AT = 12, 4, 6      # (e)
+TWIN_OPT = dict(lr=1e-3, warmup_steps=2, decay_steps=20)
+TRAIN_CARD = "cuda"
+
+
+def _leaf_sums(params) -> list:
+    """Per leaf, its float64 sum and sum of squares: a leaf that moved
+    changes them."""
+    import torch
+
+    from repro_torch.tree import leaves
+
+    return [(float(p.sum(dtype=torch.float64)),
+             float(p.square().sum(dtype=torch.float64))) for p in leaves(params)]
+
+
+def _train_steps(case, cfg, opt_cfg, step_fn, dcfg, params, n_steps, dtype,
+                 peaks, profile_it) -> dict:
+    """``n_steps`` of ``step_fn`` on the card from ``params``, the launch
+    counts zeroed just before and read just after.  Per step: loss,
+    grad_norm, lr, wall ms to a synchronize, tokens/s and the model-FLOP
+    share of the card's peak for ``dtype`` (8 N tokens: 6 N T for the
+    forward and backward, 2 N T for the remat forward; N =
+    ``cfg.param_count()``, attention's own products not counted)."""
+    import math
+
+    import torch
+
+    from repro_torch.data.pipeline import batch_for_step
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.train import to_device
+    from repro_torch.obs.profile import profile_window
+    from repro_torch.optim import adamw
+
+    bf16_rate, f32_rate, _ = peaks
+    rate = bf16_rate if dtype == "bfloat16" else f32_rate
+    tokens = dcfg.global_batch * dcfg.seq_len
+    model_flops = 8.0 * cfg.param_count() * tokens
+    before = _leaf_sums(params)
+    state = adamw.init(opt_cfg, params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    steps = []
+    for i in range(n_steps):
+        batch = to_device(batch_for_step(dcfg, i), TRAIN_CARD)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step_fn(params, state, batch)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        steps.append({"step": i + 1, "loss": float(m["loss"]),
+                      "grad_norm": float(m["grad_norm"]), "lr": float(m["lr"]),
+                      "ms": 1e3 * dt, "tokens_per_s": tokens / dt,
+                      "model_flop_share": model_flops / dt / rate})
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    moved = [a != b for a, b in zip(before, _leaf_sums(params))]
+    warm = sorted(s["ms"] for s in steps[1:])
+    row = {"case": case, "arch": cfg.name, "dtype": dtype,
+           "seq_len": dcfg.seq_len, "global_batch": dcfg.global_batch,
+           "microbatches": TRAIN_MICRO, "remat": True,
+           "params": cfg.param_count(), "model_flops_per_step": model_flops,
+           "peak_rate": rate, "steps": steps,
+           "warm_step_ms_median": warm[len(warm) // 2] if warm else None,
+           "peak_mem_bytes": peak, "launches": launches,
+           "leaves_moved": sum(moved), "leaves": len(moved)}
+    row["checks"] = {
+        "losses_finite": all(math.isfinite(s["loss"]) and math.isfinite(s["grad_norm"])
+                             for s in steps),
+        "every_leaf_moved": all(moved),
+        "no_kernel_launched": launches == {"flash_attention": 0, "ssd_scan": 0}}
+    if profile_it:
+        batch = to_device(batch_for_step(dcfg, n_steps), TRAIN_CARD)
+        out = []
+        prof = profile_window(case, lambda: out.append(step_fn(params, state, batch)), 8)
+        del out
+        row.update(profiled_step_wall_ms=prof["wall_ms"],
+                   device_kernel_ms=prof["kernel_ms"],
+                   idle_share=prof["idle_share"], profiled_launches=prof["launches"],
+                   top_kernels=prof["top"])
+    return row
+
+
+def _train_kernel_route(case, cfg, params, batch, expected) -> dict:
+    """``loss_fn`` under no_grad in float32 with the kernel context and with
+    TRAIN_CTX: the losses within 1e-4 relative, the kernel context's
+    launches exactly ``expected``, TRAIN_CTX's none."""
+    import math
+
+    import torch
+
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models.config import CellTuning
+    from repro_torch.models.ops import ShardCtx
+    from repro_torch.train.steps import TRAIN_CTX, loss_fn
+
+    tuning = CellTuning(compute_dtype="float32", remat=False)
+    losses, launches = {}, {}
+    with torch.no_grad():
+        for impl, ctx in (("kernel", ShardCtx()), ("torch", TRAIN_CTX)):
+            reset_launches()
+            loss, _ = loss_fn(params, cfg, batch, ctx, tuning)
+            losses[impl] = float(loss)
+            launches[impl] = dict(LAUNCHES)
+    rel = abs(losses["kernel"] - losses["torch"]) / abs(losses["torch"])
+    checks = {"losses_finite": all(math.isfinite(v) for v in losses.values()),
+              "within_1e-4": rel <= 1e-4,
+              "kernel_launches": launches["kernel"] == expected,
+              "torch_launches_none": launches["torch"] == {"flash_attention": 0,
+                                                           "ssd_scan": 0}}
+    return {"case": case, "arch": cfg.name, "dtype": "float32",
+            "tokens": list(batch["tokens"].shape), "losses": losses, "rel_diff": rel,
+            "tol": 1e-4, "launches": launches, "expected_launches": expected,
+            "checks": checks}
+
+
+def _twin_case(name) -> dict:
+    """One reduced twin, ``TRAIN_TWIN_STEPS`` steps on the card and on the
+    CPU from the same weights and batches: per step the loss within 1e-5
+    relative and grad_norm within 1e-4.  For MoE the experts each router
+    call picks are recorded on both; the tokens whose experts differ are
+    counted (routing_flips), and from the first step with a flip on the
+    two runs are no longer compared."""
+    import math
+
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.pipeline import DataConfig, batch_for_step
+    from repro_torch.launch.train import rescale_attention, to_device
+    from repro_torch.models import moe
+    from repro_torch.models.config import CellTuning
+    from repro_torch.models.model import cast_params
+    from repro_torch.models.schema import build_schema
+    from repro_torch.models.sharding import init_from_schema
+    from repro_torch.models.testing import reduced
+    from repro_torch.optim import adamw
+    from repro_torch.train.steps import make_train_step
+
+    cfg = reduced(get_arch(name))
+    cpu = init_from_schema(0, build_schema(cfg), torch.float32, "cpu")
+    rescale_attention(cpu)
+    opt = adamw.OptimizerConfig(**TWIN_OPT)
+    step = make_train_step(cfg, opt, CellTuning(num_microbatches=TRAIN_MICRO, remat=True,
+                                                compute_dtype="float32"))
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=32, global_batch=4, seed=2,
+                      enc_len=cfg.enc_len, d_model=cfg.d_model)
+    devices = {"card": TRAIN_CARD, "cpu": "cpu"}
+    runs = {key: [cast_params(cpu, torch.float32, dev), None] for key, dev in devices.items()}
+    for run in runs.values():
+        run[1] = adamw.init(opt, run[0])
+    route = moe._route
+    rows, flips, compared = [], 0, True
+    for i in range(TRAIN_TWIN_STEPS):
+        batch = batch_for_step(dcfg, i)
+        metrics, routes = {}, {}
+        for key, run in runs.items():
+            rec = routes[key] = []
+
+            def recording(*args, rec=rec, **kwargs):
+                out = route(*args, **kwargs)
+                rec.append(out[3].sort(dim=-1).values.cpu())
+                return out
+
+            moe._route = recording
+            try:
+                run[0], run[1], m = step(run[0], run[1], to_device(batch, devices[key]))
+            finally:
+                moe._route = route
+            metrics[key] = {k: float(v) for k, v in m.items()}
+        step_flips = sum(int((a != b).any(dim=-1).sum())
+                         for a, b in zip(routes["card"], routes["cpu"]))
+        flips += step_flips
+        compared = compared and step_flips == 0 and len(routes["card"]) == len(routes["cpu"])
+        c, p = metrics["card"], metrics["cpu"]
+        rows.append({"step": i + 1, "loss": c["loss"], "loss_cpu": p["loss"],
+                     "loss_rel": abs(c["loss"] - p["loss"]) / abs(p["loss"]),
+                     "grad_norm": c["grad_norm"], "grad_norm_cpu": p["grad_norm"],
+                     "grad_norm_rel": abs(c["grad_norm"] - p["grad_norm"]) / p["grad_norm"],
+                     "routing_flips": step_flips, "compared": compared})
+    finite = all(math.isfinite(r[k]) for r in rows
+                 for k in ("loss", "loss_cpu", "grad_norm", "grad_norm_cpu"))
+    gated = [r for r in rows if r["compared"]]
+    checks = {"finite": finite,
+              "loss_within_1e-5": all(r["loss_rel"] <= 1e-5 for r in gated),
+              "grad_norm_within_1e-4": all(r["grad_norm_rel"] <= 1e-4 for r in gated)}
+    return {"case": "d_card_vs_cpu", "arch": name, "family": cfg.family.value,
+            "steps": rows, "routing_flips": flips, "steps_compared": len(gated),
+            "checks": checks}
+
+
+def _train_restart() -> dict:
+    """Reduced qwen2 for RESTART_STEPS steps on the card through
+    RestartManager (a checkpoint every RESTART_EVERY steps, one injected
+    failure at step RESTART_FAIL_AT), against an uninterrupted run: its
+    final parameters and optimizer state bit-equal, or within 1e-6 of each
+    leaf's magnitude."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.checkpoint import store
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.pipeline import DataConfig, batch_for_step
+    from repro_torch.ft.manager import RestartManager
+    from repro_torch.launch.train import to_device
+    from repro_torch.models.config import CellTuning
+    from repro_torch.models.schema import build_schema
+    from repro_torch.models.sharding import init_from_schema
+    from repro_torch.models.testing import reduced
+    from repro_torch.optim import adamw
+    from repro_torch.train.steps import make_train_step
+    from repro_torch.tree import leaves
+
+    cfg = reduced(get_arch(TRAIN_ARCH))
+    opt = adamw.OptimizerConfig(**TWIN_OPT)
+    step = make_train_step(cfg, opt, CellTuning(num_microbatches=TRAIN_MICRO, remat=True,
+                                                compute_dtype="float32"))
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=32, global_batch=4, seed=5)
+
+    def init_fn():
+        params = init_from_schema(0, build_schema(cfg), torch.float32, TRAIN_CARD)
+        return {"params": params, "opt": adamw.init(opt, params)}
+
+    def step_fn(state, i):
+        params, opt_state, _ = step(state["params"], state["opt"],
+                                    to_device(batch_for_step(dcfg, i), TRAIN_CARD))
+        return {"params": params, "opt": opt_state}
+
+    ref = init_fn()
+    for i in range(RESTART_STEPS):
+        ref = step_fn(ref, i)
+    failed = []
+
+    def flaky(state, i):
+        if i == RESTART_FAIL_AT and not failed:
+            failed.append(i)
+            raise RuntimeError("injected failure")
+        return step_fn(state, i)
+
+    with tempfile.TemporaryDirectory() as d:
+        mgr = RestartManager(d, checkpoint_every=RESTART_EVERY)
+        out = mgr.run(init_fn, flaky, num_steps=RESTART_STEPS)
+        kept = store.all_steps(d)
+    pairs = list(zip(leaves(out), leaves(ref)))
+    bit_equal = all(torch.equal(a, b) for a, b in pairs)
+    max_rel = max(float((a.double() - b.double()).abs().max())
+                  / max(float(b.double().abs().max()), 1e-30) for a, b in pairs)
+    checks = {"one_failure_recovered": mgr.total_failures == 1 and failed == [RESTART_FAIL_AT],
+              "final_step": int(out["opt"].step) == RESTART_STEPS,
+              "within_1e-6": max_rel <= 1e-6}
+    return {"case": "e_restart", "arch": cfg.name, "steps": RESTART_STEPS,
+            "checkpoint_every": RESTART_EVERY, "failed_at": RESTART_FAIL_AT,
+            "checkpoints_kept": kept, "leaves": len(pairs), "bit_equal": bit_equal,
+            "max_rel_diff": max_rel, "tol": 1e-6, "checks": checks}
+
+
+def _emit_train(row) -> None:
+    emit("train", **row)
+    if not all(row["checks"].values()):
+        raise RuntimeError(f"train checks failed on {row['case']} {row['arch']}: "
+                           f"{row['checks']}")
+
+
+def phase_train(peaks) -> dict:
+    """The train phase.  (a) qwen2-1.5b at full width and depth through the
+    CLI's builder (``launch.train.build(..., full=True)``: float32, remat,
+    2 micro-batches), DataConfig(seq_len=512, global_batch=8), TRAIN_STEPS
+    steps, then one more under the profiler.  (c) first, on the same initial
+    weights and (a)'s first batch: the kernel route under no_grad, 28 flash
+    launches.  (b) the same model and weights in bfloat16 compute,
+    TRAIN_BF16_STEPS steps and one profiled, its step-0 loss within 2e-2
+    relative of (a)'s.  (c) again at zamba2's
+    reduced twin.  (d) every registry arch's reduced twin, card against
+    CPU.  (e) the restart.  Returns the kernel launches counted over the
+    train steps of (a), (b) and (d): none may launch."""
+    import torch
+
+    from repro_torch.configs.registry import ARCHS, get_arch
+    from repro_torch.data.pipeline import DataConfig, batch_for_step
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.train import build, to_device
+    from repro_torch.models.config import CellTuning
+    from repro_torch.models.testing import reduced
+    from repro_torch.train.steps import make_train_step
+
+    cfg, opt_cfg, step_fn, dcfg = build(TRAIN_ARCH, full=True, seq_len=TRAIN_SEQ,
+                                        batch=TRAIN_BATCH, lr=TRAIN_LR,
+                                        microbatches=TRAIN_MICRO)
+    total = {"flash_attention": 0, "ssd_scan": 0}
+
+    def count(launches):
+        for k in total:
+            total[k] += launches[k]
+
+    # each run draws its own copy of the seeded weights (the same values), so
+    # no copy outlives the run that uses it
+    _emit_train(_train_kernel_route(
+        "c_kernel_route", cfg, _weights(cfg, TRAIN_CARD),
+        to_device(batch_for_step(dcfg, 0), TRAIN_CARD),
+        {"flash_attention": cfg.n_layers, "ssd_scan": 0}))
+    torch.cuda.empty_cache()
+    a = _train_steps("a_float32", cfg, opt_cfg, step_fn, dcfg, _weights(cfg, TRAIN_CARD),
+                     TRAIN_STEPS, "float32", peaks, profile_it=True)
+    count(a["launches"])
+    _emit_train(a)
+    torch.cuda.empty_cache()
+
+    tuning16 = CellTuning(num_microbatches=TRAIN_MICRO, remat=True,
+                          compute_dtype="bfloat16")
+    b = _train_steps("b_bfloat16", cfg, opt_cfg, make_train_step(cfg, opt_cfg, tuning16),
+                     dcfg, _weights(cfg, TRAIN_CARD), TRAIN_BF16_STEPS, "bfloat16", peaks,
+                     profile_it=True)
+    count(b["launches"])
+    b["step0_loss_float32"] = a["steps"][0]["loss"]
+    b["step0_rel_diff"] = abs(b["steps"][0]["loss"] - a["steps"][0]["loss"]) \
+        / abs(a["steps"][0]["loss"])
+    b["checks"]["step0_within_2e-2_of_float32"] = b["step0_rel_diff"] <= 2e-2
+    _emit_train(b)
+    torch.cuda.empty_cache()
+
+    zcfg = reduced(get_arch("zamba2-1.2b"))
+    zdata = DataConfig(vocab=zcfg.vocab, seq_len=64, global_batch=4, seed=1)
+    _emit_train(_train_kernel_route(
+        "c_kernel_route", zcfg, _weights(zcfg, TRAIN_CARD),
+        to_device(batch_for_step(zdata, 0), TRAIN_CARD),
+        {"flash_attention": zcfg.n_layers // zcfg.shared_attn_period,
+         "ssd_scan": zcfg.n_layers}))
+    for name in sorted(ARCHS):
+        reset_launches()
+        row = _twin_case(name)
+        count(dict(LAUNCHES))
+        row["launches"] = dict(LAUNCHES)
+        row["checks"]["no_kernel_launched"] = row["launches"] == {"flash_attention": 0,
+                                                                  "ssd_scan": 0}
+        _emit_train(row)
+    _emit_train(_train_restart())
+    return total
 
 
 # the planner phase: boutique's scenarios through the pipeline under each
@@ -1972,6 +2333,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         timed(f"{check} {arch}", fn, cfg, arg)
         torch.cuda.empty_cache()
+    launches["train"] = timed("train", phase_train, peaks)
+    torch.cuda.empty_cache()
     timed("planner", phase_planner)
     eager = timed("continuum", phase_continuum)
     timed("replay", phase_replay, eager)

@@ -21,14 +21,18 @@ whole) and returns them, where the JAX package returns updated copies.
 
 Parameters must already be in the compute dtype: ``cast_params`` casts them
 once, where ``repro.models.model.forward`` casts on every call (which in
-eager PyTorch would copy every weight each decode step).
+eager PyTorch would copy every weight each decode step).  Training casts
+inside the differentiated function (``train.steps.loss_fn``), so the
+float32 leaves get the gradient.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+import functools
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from .config import ArchConfig, Family, MLPKind
 from .moe import moe_mlp
@@ -143,29 +147,51 @@ def mlp_block(p: Dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     return x + out
 
 
-def _layer(stack: Dict, i: int) -> Dict:
-    """Layer i of a ``{block: {name: [L, ...]}}`` stack."""
-    return {blk: {name: w[i] for name, w in ws.items()}
-            for blk, ws in stack.items()}
+def _unstack(stack, n: int) -> List:
+    """The ``n`` per-layer views of a stacked ``[L, ...]`` dict, nested
+    (``{block: {name: w}}``) or flat.  Each weight is unbound once, so under
+    autograd all of its layers' gradients land in one ``[L, ...]`` buffer:
+    ``w[i]`` per layer would build a zero ``[L, ...]`` gradient per layer."""
+    if isinstance(stack, dict):
+        per_key = {k: _unstack(v, n) for k, v in stack.items()}
+        return [{k: per_key[k][i] for k in stack} for i in range(n)]
+    return torch.unbind(stack)
 
 
-def _dense_stack(params, h, cfg, ctx, cache, *, mode, with_aux):
+def _maybe_remat(fn, remat: bool):
+    """``fn`` under activation checkpointing when ``remat`` (the JAX stacks'
+    ``jax.checkpoint`` per layer): its activations are recomputed in the
+    backward pass instead of kept.  The layers draw no random numbers, so
+    no RNG state is stashed."""
+    if not remat:
+        return fn
+    return functools.partial(checkpoint, fn, use_reentrant=False,
+                             preserve_rng_state=False)
+
+
+def _dense_stack(params, h, cfg, ctx, cache, *, mode, with_aux, remat=False):
     """DENSE / VLM / MOE decoder: a loop over the stacked [L, ...] weights.
     Returns (h, cache, aux): for MOE with ``with_aux``, each aux loss's mean
     over the layers."""
     is_moe = cfg.family == Family.MOE
     pos0 = cache["pos"] if cache is not None else None
-    ks, vs, auxes = [], [], []
-    for i in range(cfg.n_layers):
-        lp = _layer(params["layers"], i)
-        kv = (cache["k"][i], cache["v"][i], pos0) if cache is not None else None
-        h, (k, v) = attention_block(lp["attn"], h, cfg, ctx, mode=mode, kv_cache=kv)
+
+    def layer(h, lp, kv):
+        h, new_kv = attention_block(lp["attn"], h, cfg, ctx, mode=mode, kv_cache=kv)
+        aux = {}
         if is_moe:
             y, aux = moe_mlp(lp["moe"], h, cfg, ctx, with_aux=with_aux)
             h = h + y
-            auxes.append(aux)
         else:
             h = mlp_block(lp["mlp"], h, cfg)
+        return h, new_kv, aux
+
+    layer = _maybe_remat(layer, remat)
+    ks, vs, auxes = [], [], []
+    for i, lp in enumerate(_unstack(params["layers"], cfg.n_layers)):
+        kv = (cache["k"][i], cache["v"][i], pos0) if cache is not None else None
+        h, (k, v), aux = layer(h, lp, kv)
+        auxes.append(aux)
         if mode == PREFILL:
             ks.append(k)
             vs.append(v)
@@ -183,19 +209,18 @@ def _dense_stack(params, h, cfg, ctx, cache, *, mode, with_aux):
     return h, new_cache, aux
 
 
-def _flat_layer(params: Dict, i: int) -> Dict:
-    """Layer i of a flat ``{name: [L, ...]}`` stack (the mamba2 layers)."""
-    return {name: w[i] for name, w in params["layers"].items()}
-
-
-def _ssm_stack(params, h, cfg, ctx, cache, *, mode, with_aux):
+def _ssm_stack(params, h, cfg, ctx, cache, *, mode, with_aux, remat=False):
     """falcon-mamba: a loop over the stacked mamba1 layers."""
     pos0 = cache["pos"] if cache is not None else None
+
+    def layer(h, lp, lc):
+        return mamba1_block(lp, h, cfg, ctx, cache=lc, return_state=mode == PREFILL)
+
+    layer = _maybe_remat(layer, remat)
     states = []
-    for i in range(cfg.n_layers):
+    for i, lp in enumerate(_unstack(params["layers"], cfg.n_layers)):
         lc = {key: cache[key][i] for key in ("conv", "ssm")} if cache is not None else None
-        h, st = mamba1_block(_flat_layer(params, i), h, cfg, ctx, cache=lc,
-                             return_state=mode == PREFILL)
+        h, st = layer(h, lp, lc)
         if mode == PREFILL:
             states.append(st)
     new_cache = None
@@ -210,19 +235,24 @@ def _ssm_stack(params, h, cfg, ctx, cache, *, mode, with_aux):
     return h, new_cache, {}
 
 
-def _hybrid_stack(params, h, cfg, ctx, cache, *, mode, with_aux):
+def _hybrid_stack(params, h, cfg, ctx, cache, *, mode, with_aux, remat=False):
     """zamba2: mamba2 backbone; a single SHARED attention+MLP block applied
     after every ``shared_attn_period`` layers (own KV cache per application
     point).  G = L // period groups of ``period`` mamba2 layers, each
-    followed by the shared block, then the L - G * period tail layers."""
+    followed by the shared block, then the L - G * period tail layers.
+    ``remat`` checkpoints the mamba2 layers, as the JAX stack does."""
     period = cfg.shared_attn_period
     pos0 = cache["pos"] if cache is not None else None
     shared = params["shared"]
+
+    def m2_layer(h, lp, lc):
+        return mamba2_block(lp, h, cfg, ctx, cache=lc, return_state=mode == PREFILL)
+
+    m2_layer = _maybe_remat(m2_layer, remat)
     states, ks, vs = [], [], []
-    for i in range(cfg.n_layers):
+    for i, lp in enumerate(_unstack(params["layers"], cfg.n_layers)):
         lc = {key: cache[key][i] for key in STATE_KEYS} if cache is not None else None
-        h, st = mamba2_block(_flat_layer(params, i), h, cfg, ctx, cache=lc,
-                             return_state=mode == PREFILL)
+        h, st = m2_layer(h, lp, lc)
         if mode == PREFILL:
             states.append(st)
         if (i + 1) % period == 0:
@@ -248,15 +278,19 @@ def _hybrid_stack(params, h, cfg, ctx, cache, *, mode, with_aux):
 
 
 def encoder(params: Dict, cfg: ArchConfig, enc_embeds: torch.Tensor, *,
-            ctx: ShardCtx = NOSHARD) -> torch.Tensor:
+            ctx: ShardCtx = NOSHARD, remat: bool = False) -> torch.Tensor:
     """whisper's encoder over stub frame embeddings (B, enc_len, d):
     non-causal self-attention with rope, then the GELU MLP, per layer;
     then ``enc_final_norm``."""
-    e = enc_embeds
-    for i in range(cfg.n_layers):
-        lp = _layer(params["enc_layers"], i)
+
+    def layer(e, lp):
         e, _ = attention_block(lp["attn"], e, cfg, ctx, mode=TRAIN, causal=False)
-        e = mlp_block(lp["mlp"], e, cfg)
+        return mlp_block(lp["mlp"], e, cfg)
+
+    layer = _maybe_remat(layer, remat)
+    e = enc_embeds
+    for lp in _unstack(params["enc_layers"], cfg.n_layers):
+        e = layer(e, lp)
     return rms_norm(e, params["enc_final_norm"], cfg.norm_eps)
 
 
@@ -272,7 +306,8 @@ def _cross_from_cache(p: Dict, x: torch.Tensor, cfg: ArchConfig,
     return x + out.reshape(*x.shape[:2], -1) @ p["wo"].reshape(-1, cfg.d_model)
 
 
-def _encdec_stack(params, h, cfg, ctx, cache, *, mode, with_aux, enc_embeds=None):
+def _encdec_stack(params, h, cfg, ctx, cache, *, mode, with_aux, remat=False,
+                  enc_embeds=None):
     """whisper: the encoder (train and prefill only), then per decoder layer
     causal self-attention, non-causal cross-attention over the encoder
     output and the MLP.  Decode never re-runs the encoder: it reads the
@@ -282,20 +317,26 @@ def _encdec_stack(params, h, cfg, ctx, cache, *, mode, with_aux, enc_embeds=None
     if mode != DECODE:
         if enc_embeds is None:
             raise ValueError(f"{cfg.name} needs batch['enc_embeds'] in {mode} mode")
-        enc_out = encoder(params, cfg, enc_embeds, ctx=ctx)
-    ks, vs, cks, cvs = [], [], [], []
-    for i in range(cfg.n_layers):
-        lp = _layer(params["layers"], i)
-        kv = (cache["k"][i], cache["v"][i], pos0) if cache is not None else None
-        h, (k, v) = attention_block(lp["attn"], h, cfg, ctx, mode=mode, kv_cache=kv)
+        enc_out = encoder(params, cfg, enc_embeds, ctx=ctx, remat=remat)
+
+    def layer(h, lp, kv, cross_kv):
+        h, new_kv = attention_block(lp["attn"], h, cfg, ctx, mode=mode, kv_cache=kv)
         if mode == DECODE:
-            h = _cross_from_cache(lp["cross"], h, cfg, cache["cross_k"][i],
-                                  cache["cross_v"][i])
+            h = _cross_from_cache(lp["cross"], h, cfg, *cross_kv)
         else:
-            h, (ck, cv) = attention_block(lp["cross"], h, cfg, ctx, mode=mode,
+            h, cross_kv = attention_block(lp["cross"], h, cfg, ctx, mode=mode,
                                           causal=False, use_rope=False,
                                           cross_states=enc_out)
-        h = mlp_block(lp["mlp"], h, cfg)
+        return mlp_block(lp["mlp"], h, cfg), new_kv, cross_kv
+
+    layer = _maybe_remat(layer, remat)
+    ks, vs, cks, cvs = [], [], [], []
+    for i, lp in enumerate(_unstack(params["layers"], cfg.n_layers)):
+        kv = cross = None
+        if cache is not None:
+            kv = (cache["k"][i], cache["v"][i], pos0)
+            cross = (cache["cross_k"][i], cache["cross_v"][i])
+        h, (k, v), (ck, cv) = layer(h, lp, kv, cross)
         if mode == PREFILL:
             ks.append(k)
             vs.append(v)
@@ -321,12 +362,13 @@ _STACKS = {Family.DENSE: _dense_stack, Family.VLM: _dense_stack,
 
 def backbone(params: Dict, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *,
              ctx: ShardCtx = NOSHARD, mode: str = TRAIN,
-             cache: Optional[Cache] = None,
-             with_aux: bool = False) -> Tuple[torch.Tensor, Optional[Cache], Dict]:
+             cache: Optional[Cache] = None, with_aux: bool = False,
+             remat: bool = False) -> Tuple[torch.Tensor, Optional[Cache], Dict]:
     """Embedding + layer stack + final norm: (hidden (B, S, d), cache, aux).
     ``aux`` holds the MoE aux losses when ``with_aux`` (else ``{}``).
     The encoder-decoder family reads ``batch["enc_embeds"]`` (B, enc_len,
-    d) in train and prefill mode, cast to the parameters' dtype."""
+    d) in train and prefill mode, cast to the parameters' dtype.
+    ``remat``: recompute each layer's activations in the backward pass."""
     if (cache is not None) != (mode == DECODE):
         raise ValueError(f"mode {mode!r} with cache={cache is not None}: "
                          "decode needs a cache and only decode takes one")
@@ -335,8 +377,8 @@ def backbone(params: Dict, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *,
         enc = batch.get("enc_embeds")
         extra["enc_embeds"] = None if enc is None else enc.to(params["embed"].dtype)
     h = params["embed"][batch["tokens"]]
-    h, new_cache, aux = _STACKS[cfg.family](params, h, cfg, ctx, cache,
-                                            mode=mode, with_aux=with_aux, **extra)
+    h, new_cache, aux = _STACKS[cfg.family](params, h, cfg, ctx, cache, mode=mode,
+                                            with_aux=with_aux, remat=remat, **extra)
     return rms_norm(h, params["final_norm"], cfg.norm_eps), new_cache, aux
 
 
@@ -354,11 +396,13 @@ def forward(
     ctx: ShardCtx = NOSHARD,
     mode: str = TRAIN,
     cache: Optional[Cache] = None,
+    remat: bool = False,
 ) -> Tuple[torch.Tensor, Optional[Cache], Dict]:
     """Returns (logits (B, S, Vp), cache (prefill/decode) or None, aux: the
-    MoE aux losses' means over the layers, ``{}`` for other families)."""
+    MoE aux losses' means over the layers, ``{}`` for other families).
+    ``remat`` checkpoints each layer, as the JAX ``forward``'s does."""
     h, new_cache, aux = backbone(params, cfg, batch, ctx=ctx, mode=mode,
-                                 cache=cache, with_aux=True)
+                                 cache=cache, with_aux=True, remat=remat)
     return head(params, cfg, h), new_cache, aux
 
 

@@ -1,4 +1,5 @@
-"""Shared model ops: norms, rotary embeddings, attention (direct + chunked).
+"""Shared model ops: norms, rotary embeddings, attention (direct + chunked),
+the training loss.
 
 ``attention_chunked`` is the plain PyTorch path (a loop over query chunks
 that never holds the full S_q x S_k score tensor).  The hand-written CUDA
@@ -9,7 +10,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -135,3 +136,19 @@ def attention_chunked(
         for i in range(0, Sq, q_chunk)
     ]
     return torch.cat(outs, dim=1)
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          vocab: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mean CE over tokens + z-loss term; logits (..., Vp) may be padded to
+    Vp >= vocab — padded slots are masked out of the partition function."""
+    vp = logits.shape[-1]
+    logits = logits.float()
+    if vp > vocab:
+        pad_mask = torch.arange(vp, device=logits.device) >= vocab
+        logits = logits.masked_fill(pad_mask, NEG_INF)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    ce = (logz - gold).mean()
+    zloss = torch.square(logz).mean()
+    return ce, zloss

@@ -1,4 +1,16 @@
-"""Serving step factories (training waits for a later slice of the port).
+"""Training and serving step factories.
+
+``make_train_step`` builds (params, opt_state, batch) -> (params,
+opt_state, metrics), the port of ``repro.train.steps.make_train_step``:
+  * gradient accumulation over micro-batches (a loop in micro-batch order,
+    the reference's ``lax.scan``) in ``tuning.accum_dtype``;
+  * per-layer remat (``torch.utils.checkpoint``) when ``tuning.remat``;
+  * MoE auxiliary losses folded into the objective;
+  * AdamW with clipping/schedule, optional int8 error-feedback compression.
+Gradients come from ``torch.autograd.grad`` on the float32 leaves; the
+compute-dtype cast sits inside the differentiated function.  The step runs
+the plain attention and SSD paths (``TRAIN_CTX``), as the JAX step runs
+XLA's: the hand-written kernels have no backward.
 
 ``make_prefill_step`` / ``make_serve_step`` build the serving entry points:
 the full-sequence cache build and the one-token decode step.  Parameters
@@ -6,13 +18,103 @@ come in the compute dtype already (``models.model.cast_params``).
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Any, Callable, Dict, List, Tuple
 
 import torch
 
-from repro_torch.models.config import ArchConfig
-from repro_torch.models.model import DECODE, PREFILL, backbone, head
-from repro_torch.models.ops import NOSHARD, ShardCtx
+from repro_torch.models.config import ArchConfig, CellTuning, Family
+from repro_torch.models.model import DECODE, PREFILL, TRAIN, backbone, cast_params, forward, head
+from repro_torch.models.ops import NOSHARD, ShardCtx, softmax_cross_entropy
+from repro_torch.optim import adamw
+from repro_torch.tree import leaves, unflatten
+
+LOAD_BALANCE_COEF = 0.01
+ROUTER_Z_COEF = 1e-4
+Z_LOSS_COEF = 1e-4
+
+# the plain paths: the counterpart of the JAX step's default context, whose
+# attention and SSD run in XLA, never through a Pallas kernel
+TRAIN_CTX = ShardCtx(attention_impl="torch", ssm_impl="torch")
+
+
+def loss_fn(
+    params: Any,
+    cfg: ArchConfig,
+    batch: Dict[str, torch.Tensor],
+    ctx: ShardCtx,
+    tuning: CellTuning,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """(loss, metrics).  Float32 leaves are cast to ``tuning.compute_dtype``
+    here, inside the graph, so their gradients reach the float32 leaves."""
+    p = cast_params(params, getattr(torch, tuning.compute_dtype))
+    logits, _, aux = forward(p, cfg, batch, ctx=ctx, mode=TRAIN, remat=tuning.remat)
+    ce, zloss = softmax_cross_entropy(logits, batch["labels"], cfg.vocab)
+    loss = ce + Z_LOSS_COEF * zloss
+    metrics = {"ce": ce, "z_loss": zloss}
+    if aux:
+        loss = loss + LOAD_BALANCE_COEF * aux["load_balance"] \
+            + ROUTER_Z_COEF * aux["router_z"]
+        metrics.update(aux)
+    metrics["loss"] = loss
+    return loss, metrics
+
+
+def make_train_step(
+    cfg: ArchConfig,
+    opt_cfg: adamw.OptimizerConfig,
+    tuning: CellTuning,
+    ctx: ShardCtx = TRAIN_CTX,
+) -> Callable:
+    """Returns train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics), metrics with the JAX step's keys (``ce``, ``z_loss``,
+    ``loss``, the MoE aux keys, ``grad_norm``, ``lr``).  The batch's leading
+    axis splits into ``tuning.num_microbatches`` consecutive micro-batches.
+    The inputs are not modified."""
+    n_micro = tuning.num_microbatches
+    accum_dtype = getattr(torch, tuning.accum_dtype)
+    keys = _metric_keys(cfg)
+
+    def train_step(params, opt_state, batch):
+        gb = batch["tokens"].shape[0]
+        if gb % n_micro:
+            raise ValueError(f"global batch {gb} does not split into "
+                             f"{n_micro} micro-batches")
+        mb_size = gb // n_micro
+        flat = leaves(params)
+        gsum = [torch.zeros(p.shape, dtype=accum_dtype, device=p.device)
+                for p in flat]
+        msum = {k: torch.zeros((), dtype=torch.float32, device=flat[0].device)
+                for k in keys}
+        for i in range(n_micro):
+            mb = {k: v[i * mb_size:(i + 1) * mb_size] for k, v in batch.items()}
+            with torch.enable_grad():
+                req = [p.detach().requires_grad_() for p in flat]
+                loss, metrics = loss_fn(unflatten(params, req), cfg, mb, ctx, tuning)
+                grads = torch.autograd.grad(loss, req)
+            for acc, g in zip(gsum, grads):
+                acc += g.to(accum_dtype)
+            del grads
+            for k in keys:
+                msum[k] += metrics[k].detach()
+        # tensor divisors: on the card ``tensor / number`` multiplies by the
+        # number's reciprocal
+        for acc in gsum:
+            acc /= torch.full((), n_micro, dtype=accum_dtype, device=acc.device)
+        n = torch.full((), n_micro, dtype=torch.float32, device=flat[0].device)
+        metrics = {k: v / n for k, v in msum.items()}
+        params, opt_state, opt_metrics = adamw.apply(
+            opt_cfg, params, unflatten(params, gsum), opt_state)
+        metrics.update(opt_metrics)
+        return params, opt_state, metrics
+
+    return train_step
+
+
+def _metric_keys(cfg: ArchConfig) -> List[str]:
+    keys = ["ce", "z_loss", "loss"]
+    if cfg.family == Family.MOE:
+        keys += ["drop_fraction", "load_balance", "router_z"]
+    return keys
 
 
 def make_prefill_step(cfg: ArchConfig, ctx: ShardCtx = NOSHARD) -> Callable:

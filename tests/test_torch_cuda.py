@@ -710,3 +710,76 @@ def test_whisper_engine_on_card_matches_cpu(card):
     on_card = _engine_tokens(cfg, gpu, card, prompts)
     assert LAUNCHES == {"flash_attention": 3 * 3 * cfg.n_layers, "ssd_scan": 0}
     assert on_card == _engine_tokens(cfg, cpu, "cpu", prompts)
+
+
+# --------------------------------------------------------------------------
+# training
+# --------------------------------------------------------------------------
+
+
+def test_kernels_raise_under_autograd_on_card(card):
+    """Neither kernel has a backward: on a CUDA tensor that needs a gradient
+    the wrapper raises before it launches."""
+    g = torch.Generator(device=card).manual_seed(0)
+    q = torch.randn(1, 64, 4, 32, generator=g, device=card, requires_grad=True)
+    k = torch.randn(1, 64, 2, 32, generator=g, device=card)
+    x = torch.randn(1, 64, 2, 16, generator=g, device=card, requires_grad=True)
+    dt = 0.1 * torch.rand(1, 64, 2, generator=g, device=card)
+    A = -torch.rand(2, generator=g, device=card)
+    Bc = torch.randn(1, 64, 8, generator=g, device=card)
+    reset_launches()
+    with pytest.raises(RuntimeError, match="no backward"):
+        flash_attention(q, k, k)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ssd_scan(x, dt, A, Bc, Bc, chunk=32)
+    assert LAUNCHES == {"flash_attention": 0, "ssd_scan": 0}
+    with torch.no_grad():
+        flash_attention(q, k, k)
+        ssd_scan(x, dt, A, Bc, Bc, chunk=32)
+    assert LAUNCHES == {"flash_attention": 1, "ssd_scan": 1}
+
+
+@pytest.mark.parametrize("name", ["qwen2-1.5b", "zamba2-1.2b", "whisper-large-v3"])
+def test_train_step_on_card_matches_cpu(card, name):
+    """Three steps of make_train_step (2 micro-batches, float32, remat) on
+    the card and on the CPU from the same weights and batches: loss within
+    1e-5 relative, grad_norm within 1e-4, params within 1e-4 of their
+    magnitude (Adam eps 1e-3, as tests/test_torch_train.py), and no kernel
+    launched on the card.  The weights are the seeded init with attention
+    rescaled to its contracted width, as the training CLI's ``--full`` and
+    chip_smoke.py's train phase use them: on the raw init the softmax
+    saturates, gradient norms reach 47 (qwen2) to 1,132 (whisper), and the
+    card and the CPU part by up to 1.1e-3 of them."""
+    from repro_torch.data.pipeline import DataConfig, batch_for_step
+    from repro_torch.launch.train import rescale_attention
+    from repro_torch.models.config import CellTuning
+    from repro_torch.models.model import cast_params
+    from repro_torch.optim import adamw
+    from repro_torch.train.steps import make_train_step
+    from repro_torch.tree import leaves
+
+    cfg, cpu, _ = _reduced_on_both(name, card)
+    rescale_attention(cpu)
+    gpu = cast_params(cpu, torch.float32, card)
+    opt = adamw.OptimizerConfig(lr=1e-3, warmup_steps=2, decay_steps=20, eps=1e-3)
+    step = make_train_step(cfg, opt, CellTuning(num_microbatches=2, remat=True,
+                                                compute_dtype="float32"))
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=32, global_batch=4, seed=2,
+                      enc_len=cfg.enc_len, d_model=cfg.d_model)
+    states = {"cpu": (cpu, adamw.init(opt, cpu)), "cuda": (gpu, adamw.init(opt, gpu))}
+    reset_launches()
+    for i in range(3):
+        batch = batch_for_step(dcfg, i)
+        metrics = {}
+        for dev, (params, state) in states.items():
+            b = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+            params, state, metrics[dev] = step(params, state, b)
+            states[dev] = (params, state)
+        assert float(metrics["cuda"]["loss"]) == pytest.approx(
+            float(metrics["cpu"]["loss"]), rel=1e-5)
+        assert float(metrics["cuda"]["grad_norm"]) == pytest.approx(
+            float(metrics["cpu"]["grad_norm"]), rel=1e-4)
+    assert LAUNCHES == {"flash_attention": 0, "ssd_scan": 0}
+    for got, want in zip(leaves(states["cuda"][0]), leaves(states["cpu"][0])):
+        scale = max(1.0, float(want.abs().max()))
+        torch.testing.assert_close(got.cpu(), want, atol=1e-4 * scale, rtol=1e-4)

@@ -34,7 +34,10 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.core.pipeline, repro_torch.core.scheduler, "
             "repro_torch.learn, repro_torch.obs, repro_torch.configs.synth, "
             "repro_torch.continuum, repro_torch.faults, repro_torch.fleet, "
-            "repro_torch.launch.green_placement, repro_torch.models.moe; "
+            "repro_torch.launch.green_placement, repro_torch.models.moe, "
+            "repro_torch.train.steps, repro_torch.optim.adamw, "
+            "repro_torch.data.pipeline, repro_torch.checkpoint.store, "
+            "repro_torch.ft.manager, repro_torch.launch.train; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(SRC))
