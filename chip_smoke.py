@@ -193,6 +193,30 @@ Phases, each printing one JSON line:
                summary, wall ms on both.  Fails when a plan, a
                constraint, a stat, a tick record (timings and
                ``compiles`` aside) or the final assignment differs.
+ 13. dryrun  — the launch layer's dry run (launch/dryrun.py: each cell's
+               step run on fake tensors of its full shapes, nothing
+               allocated, its FLOPs, bytes and memory counted and turned
+               into the H100's roofline): (a) run_cell on fakes on the card
+               for every registry arch x the serving shapes (prefill_32k,
+               decode_32k, long_500k); the train_4k cells are left to the
+               CLI, since one takes minutes to count (8 micro-batches with
+               remat through FakeTensorMode, operator by operator).  Per
+               cell one line: status or the skip reason, the fake peak and
+               whether it fits in 80 GB, the three roofline terms, the
+               bottleneck, the counting seconds.  (b) falcon-mamba-7b x decode_32k and
+               zamba2-1.2b x long_500k, which fit on the card: one real
+               serve step with the plan's dtypes (seeded weights, a zero
+               cache, seeded tokens), its FLOPs counted on the real tensors
+               by FlopCounterMode against the fake count (exactly equal),
+               torch.cuda.max_memory_allocated against the fake peak
+               (within 5% or 0.5 GB, whichever is larger), its ms (3 warm
+               steps between CUDA events) beside the roofline's largest
+               term.  (c) GreenPlacement fed with (a)'s records, built into
+               JobSpec.roofline as examples/green_deployment.py's
+               roofline_lookup builds them (a "perf" flavour and a 0.55x
+               "eco" one): placements, constraints and stats on the card
+               equal to the CPU's.  Fails when a cell errs, a skip reason
+               is not cell_is_supported's, or a check of (b) or (c) fails.
 
 Then one line with each phase's seconds, one line {"kernels": [...]} (each
 kernel's ``launches_per_path`` also counts the train steps' launches under
@@ -2295,6 +2319,171 @@ def phase_green() -> None:
             raise RuntimeError(f"green placement checks failed on {ticks} ticks: {checks}")
 
 
+# (a)'s shapes: a train_4k cell takes minutes to count on fakes (103-344 s
+# each on an H100 machine's host, PERF.md), a serving cell 1-9 s
+DRYRUN_SHAPES = ("prefill_32k", "decode_32k", "long_500k")
+# (b)'s cells: they fit on one card, so their step also runs for real
+DRYRUN_REAL = (("falcon-mamba-7b", "decode_32k"), ("zamba2-1.2b", "long_500k"))
+DRYRUN_MEM_TOL = (0.05, 0.5e9)   # relative, absolute: the larger holds
+
+
+def _dryrun_real_step(arch, shape, rec) -> dict:
+    """(b): the plan's step on real tensors of its fakes' shapes and dtypes
+    on the card: seeded weights, the cache's zeros, seeded tokens."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.launch.plan import build_plan
+    from repro_torch.models.model import cache_schema
+    from repro_torch.models.schema import build_schema
+    from repro_torch.models.sharding import init_from_schema
+    from repro_torch.tree import leaves
+
+    plan = build_plan(arch, shape, device="cuda")
+    cfg, B, S = plan.arch, plan.shape.global_batch, plan.shape.seq_len
+    with FakeTensorMode():
+        fakes = plan.abstract_args()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    args = (init_from_schema(0, build_schema(cfg), getattr(torch, plan.tuning.param_dtype), "cuda"),
+            init_from_schema(0, cache_schema(cfg, B, S, enc_len=cfg.enc_len),
+                             getattr(torch, plan.tuning.compute_dtype), "cuda"),
+            torch.randint(0, cfg.vocab, (B, 1), generator=gen, device="cuda",
+                          dtype=torch.int32))
+    layout = [(tuple(t.shape), t.dtype) for t in leaves(args)]
+    fake_layout = [(tuple(t.shape), t.dtype) for t in leaves(fakes)]
+    with FlopCounterMode(display=False) as fc:        # also the warm-up
+        plan.step_fn(*args)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    reps = 3
+    t0.record()
+    for _ in range(reps):
+        out = plan.step_fn(*args)
+    t1.record()
+    torch.cuda.synchronize()
+    ms = t0.elapsed_time(t1) / reps
+    finite = bool(torch.isfinite(out[0]).all())
+    del out
+    peak = torch.cuda.max_memory_allocated() - base
+    fake_peak = rec["memory"]["peak_bytes_per_device"]
+    roof = rec["roofline"]
+    largest = max(roof["compute_s"], roof["memory_s"], roof["collective_s"])
+    tol = max(DRYRUN_MEM_TOL[0] * fake_peak, DRYRUN_MEM_TOL[1])
+    checks = {"layout_equal": layout == fake_layout,
+              "flops_equal": fc.get_total_flops() == roof["flops_per_device"],
+              "peak_within_tol": abs(peak - fake_peak) <= tol,
+              "logits_finite": finite}
+    row = dict(case="real_step", arch=arch, shape=shape,
+               param_dtype=plan.tuning.param_dtype,
+               compute_dtype=plan.tuning.compute_dtype,
+               flops_real=fc.get_total_flops(), flops_fake=roof["flops_per_device"],
+               peak_bytes=peak, fake_peak_bytes=fake_peak, peak_tol_bytes=tol,
+               ms=ms, roofline_largest_ms=1e3 * largest,
+               ms_over_roofline=ms / (1e3 * largest), bottleneck=roof["bottleneck"],
+               checks=checks)
+    del args
+    torch.cuda.empty_cache()
+    emit("dryrun", **row)
+    if not all(checks.values()):
+        raise RuntimeError(f"dry-run real step checks failed on {arch} x {shape}: {checks}")
+    return row
+
+
+# (c)'s jobs, (arch, shape, steps per hour): 10 jobs for 3 pods of 4
+DRYRUN_JOBS = (("qwen2-1.5b", "prefill_32k", 900.0), ("qwen2-1.5b", "decode_32k", 3.6e6),
+               ("yi-9b", "prefill_32k", 900.0), ("yi-9b", "decode_32k", 3.6e6),
+               ("granite-moe-3b-a800m", "prefill_32k", 900.0),
+               ("granite-moe-3b-a800m", "decode_32k", 3.6e6),
+               ("zamba2-1.2b", "decode_32k", 3.6e6), ("zamba2-1.2b", "long_500k", 3.6e5),
+               ("falcon-mamba-7b", "decode_32k", 3.6e6),
+               ("falcon-mamba-7b", "long_500k", 3.6e5))
+
+
+def _dryrun_jobs(records):
+    """(c)'s jobs from (a)'s records: the roofline table as
+    examples/green_deployment.py's roofline_lookup builds it, a "perf"
+    flavour (the record's terms) and a 0.55x "eco" one per job; each
+    arch's prefill sends its KV cache to its decode."""
+    from repro_torch.launch.green_placement import JobSpec, TrafficSpec
+
+    table = {}
+    for r in records:
+        if r["status"] == "ok" and not r["multi_pod"]:
+            f = r["roofline"]
+            table[(r["arch"], r["shape"])] = {
+                "compute_s": f["compute_s"], "memory_s": f["memory_s"],
+                "collective_s": f["collective_s"]}
+    jobs, traffic = [], []
+    for arch, shape, steps_per_h in DRYRUN_JOBS:
+        base = table[(arch, shape)]
+        jobs.append(JobSpec(f"{arch}-{shape}", arch, shape,
+                            {"perf": base, "eco": {k: v * 0.55 for k, v in base.items()}},
+                            flavours_order=("perf", "eco"), steps_per_h=steps_per_h))
+        if shape == "decode_32k" and (arch, "prefill_32k", 900.0) in DRYRUN_JOBS:
+            traffic.append(TrafficSpec(f"{arch}-prefill_32k", f"{arch}-decode_32k",
+                                       gb_per_h=7200.0))
+    return jobs, traffic
+
+
+def phase_dryrun() -> None:
+    """(a) every registry arch x DRYRUN_SHAPES counted on fakes on the card;
+    (b) DRYRUN_REAL's steps run for real against their counts; (c)
+    GreenPlacement fed with (a)'s records, card vs CPU."""
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.launch.dryrun import run_cell, summary
+    from repro_torch.launch.green_placement import GreenPlacement, PodSpec
+    from repro_torch.launch.roofline import HBM_BYTES
+    from repro_torch.models.config import SHAPES, cell_is_supported
+
+    t0 = time.perf_counter()
+    records = {}
+    for arch in ARCHS:
+        for shape in DRYRUN_SHAPES:
+            rec = run_cell(arch, shape, device="cuda")
+            records[(arch, shape)] = rec
+            ok, why = cell_is_supported(ARCHS[arch], SHAPES[shape])
+            row = dict(case="cell", arch=arch, shape=shape, status=rec["status"],
+                       line=summary(rec))
+            if rec["status"] == "ok":
+                r, peak = rec["roofline"], rec["memory"]["peak_bytes_per_device"]
+                row.update(peak_gb=peak / 1e9, fits_80gb=peak <= HBM_BYTES,
+                           compute_s=r["compute_s"], memory_s=r["memory_s"],
+                           collective_s=r["collective_s"], bottleneck=r["bottleneck"],
+                           flops=r["flops_per_device"], bytes=r["hbm_bytes_per_device"],
+                           model_flops=r["model_flops"], memory=rec["memory"],
+                           count_s=rec["compile_s"])
+            else:
+                row["reason"] = rec["reason"]
+            emit("dryrun", **row)
+            if rec["status"] != ("ok" if ok else "skipped") or rec.get("reason", "") != why:
+                raise RuntimeError(f"dry run of {arch} x {shape} gave {rec}")
+    cells_s = time.perf_counter() - t0
+    for arch, shape in DRYRUN_REAL:
+        _dryrun_real_step(arch, shape, records[(arch, shape)])
+    jobs, traffic = _dryrun_jobs(records.values())
+    pods = [PodSpec("clean", "france", carbon=16.0, cost_per_chip_hour=1.3),
+            PodSpec("mid", "finland", carbon=120.0, cost_per_chip_hour=1.1),
+            PodSpec("dirty", "texas", carbon=410.0, cost_per_chip_hour=0.8)]
+    runs = {dev: GreenPlacement(device=dev).place(jobs, pods, traffic)
+            for dev in ("cuda", "cpu")}
+    (plan, out, stats), (plan_c, out_c, stats_c) = runs["cuda"], runs["cpu"]
+    checks = {"plan_equal": plan == plan_c,
+              "constraints_equal": list(out.constraints) == list(out_c.constraints),
+              "stats_equal": stats == stats_c}
+    emit("dryrun", case="green_placement", jobs=len(jobs), pods=len(pods),
+         feasible=plan.feasible,
+         placements=[(p.service, p.flavour, p.node) for p in plan.placements],
+         skipped=list(plan.skipped_services), stats=stats, cells_s=cells_s,
+         checks=checks)
+    if not all(checks.values()):
+        raise RuntimeError(f"green placement from dry-run records differs: {checks}")
+
+
 def main() -> int:
     import torch
 
@@ -2340,6 +2529,8 @@ def main() -> int:
     timed("replay", phase_replay, eager)
     timed("fleet", phase_fleet)
     timed("green", phase_green)
+    torch.cuda.empty_cache()
+    timed("dryrun", phase_dryrun)
     emit("seconds", **seconds)
 
     entries = []

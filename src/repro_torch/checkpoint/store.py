@@ -6,11 +6,13 @@ Layout (the JAX package's, ``repro.checkpoint.store``):
     leaf_<i>.npy           one file per leaf, numbered in ``jax.tree``'s
                            order (``repro_torch.tree``)
 
-So a float32 checkpoint written by either package restores into the
-other.  numpy has no bfloat16 without the ``ml_dtypes`` package, so a
-bfloat16 leaf is stored as its bits (``uint16``) with ``"bfloat16"`` as its
-dtype in ``meta.json``, and restored exactly; a bfloat16 leaf the JAX
-package wrote (numpy reads it back as two raw bytes) restores the same way.
+So a checkpoint written by either package restores into the other.
+numpy has no bfloat16 without the ``ml_dtypes`` package, so a bfloat16
+leaf is written as the JAX package writes it: its two raw bytes per
+element under the descr ``<V2`` (what ml_dtypes' bfloat16 gives numpy),
+with ``"bfloat16"`` as its dtype in ``meta.json``.  The leaf files are
+byte-equal to the JAX package's, and either package's bfloat16 leaf
+restores exactly (numpy reads it back as raw bytes).
 
 Guarantees used by the restart manager:
   * a step directory is visible iff it is complete (rename is atomic);
@@ -33,11 +35,17 @@ from repro_torch.tree import describe, leaves, unflatten
 BF16 = "bfloat16"
 
 
-def _to_numpy(leaf: Any) -> np.ndarray:
+def _save_leaf(path: str, leaf: Any) -> None:
     leaf = torch.as_tensor(leaf).detach().cpu()
-    if leaf.dtype == torch.bfloat16:
-        return leaf.view(torch.int16).numpy().view(np.uint16)
-    return leaf.numpy()
+    if leaf.dtype != torch.bfloat16:
+        np.save(path, leaf.numpy())
+        return
+    raw = leaf.contiguous().view(torch.int16).numpy().view(np.uint16).view("V2")
+    # numpy would write a plain void as "|V2"; the JAX package's file says "<V2"
+    with open(path, "wb") as fh:
+        np.lib.format.write_array_header_1_0(
+            fh, {"descr": "<V2", "fortran_order": False, "shape": raw.shape})
+        fh.write(raw.tobytes())
 
 
 def _tree_meta(tree: Any) -> Dict:
@@ -58,7 +66,7 @@ def save(directory: str, step: int, tree: Any, *, keep: int = 3,
     os.makedirs(tmp, exist_ok=True)
     tree_leaves = leaves(tree)
     for i, leaf in enumerate(tree_leaves):
-        np.save(os.path.join(tmp, f"leaf_{i}.npy"), _to_numpy(leaf))
+        _save_leaf(os.path.join(tmp, f"leaf_{i}.npy"), leaf)
     meta = {"step": step, "n_leaves": len(tree_leaves), "extra": extra or {}}
     meta.update(_tree_meta(tree))
     with open(os.path.join(tmp, "meta.json"), "w") as fh:

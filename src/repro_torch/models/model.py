@@ -27,16 +27,15 @@ float32 leaves get the gradient.
 """
 from __future__ import annotations
 
-import functools
 from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from .config import ArchConfig, Family, MLPKind
 from .moe import moe_mlp
-from .ops import NOSHARD, ShardCtx, attention_chunked, attention_reference, rms_norm, rotary
+from .ops import (NOSHARD, ShardCtx, attention_chunked, attention_reference, maybe_remat,
+                  rms_norm, rotary)
 from .sharding import ParamSchema as PS
 from .ssm import STATE_KEYS, mamba1_block, mamba2_block
 
@@ -123,7 +122,8 @@ def attention_block(
 
             out = flash_attention(q, k, v, causal=causal).to(q.dtype)
         else:
-            out = attention_chunked(q, k, v, causal=causal)
+            out = attention_chunked(q, k, v, causal=causal,
+                                    remat_body=ctx.remat_chunk_attn)
         new_kv = (k, v)
     B = x.shape[0]
     proj = out.reshape(B, S, -1) @ p["wo"].reshape(-1, cfg.d_model)
@@ -158,17 +158,6 @@ def _unstack(stack, n: int) -> List:
     return torch.unbind(stack)
 
 
-def _maybe_remat(fn, remat: bool):
-    """``fn`` under activation checkpointing when ``remat`` (the JAX stacks'
-    ``jax.checkpoint`` per layer): its activations are recomputed in the
-    backward pass instead of kept.  The layers draw no random numbers, so
-    no RNG state is stashed."""
-    if not remat:
-        return fn
-    return functools.partial(checkpoint, fn, use_reentrant=False,
-                             preserve_rng_state=False)
-
-
 def _dense_stack(params, h, cfg, ctx, cache, *, mode, with_aux, remat=False):
     """DENSE / VLM / MOE decoder: a loop over the stacked [L, ...] weights.
     Returns (h, cache, aux): for MOE with ``with_aux``, each aux loss's mean
@@ -186,7 +175,7 @@ def _dense_stack(params, h, cfg, ctx, cache, *, mode, with_aux, remat=False):
             h = mlp_block(lp["mlp"], h, cfg)
         return h, new_kv, aux
 
-    layer = _maybe_remat(layer, remat)
+    layer = maybe_remat(layer, remat)
     ks, vs, auxes = [], [], []
     for i, lp in enumerate(_unstack(params["layers"], cfg.n_layers)):
         kv = (cache["k"][i], cache["v"][i], pos0) if cache is not None else None
@@ -216,7 +205,7 @@ def _ssm_stack(params, h, cfg, ctx, cache, *, mode, with_aux, remat=False):
     def layer(h, lp, lc):
         return mamba1_block(lp, h, cfg, ctx, cache=lc, return_state=mode == PREFILL)
 
-    layer = _maybe_remat(layer, remat)
+    layer = maybe_remat(layer, remat)
     states = []
     for i, lp in enumerate(_unstack(params["layers"], cfg.n_layers)):
         lc = {key: cache[key][i] for key in ("conv", "ssm")} if cache is not None else None
@@ -248,7 +237,7 @@ def _hybrid_stack(params, h, cfg, ctx, cache, *, mode, with_aux, remat=False):
     def m2_layer(h, lp, lc):
         return mamba2_block(lp, h, cfg, ctx, cache=lc, return_state=mode == PREFILL)
 
-    m2_layer = _maybe_remat(m2_layer, remat)
+    m2_layer = maybe_remat(m2_layer, remat)
     states, ks, vs = [], [], []
     for i, lp in enumerate(_unstack(params["layers"], cfg.n_layers)):
         lc = {key: cache[key][i] for key in STATE_KEYS} if cache is not None else None
@@ -287,7 +276,7 @@ def encoder(params: Dict, cfg: ArchConfig, enc_embeds: torch.Tensor, *,
         e, _ = attention_block(lp["attn"], e, cfg, ctx, mode=TRAIN, causal=False)
         return mlp_block(lp["mlp"], e, cfg)
 
-    layer = _maybe_remat(layer, remat)
+    layer = maybe_remat(layer, remat)
     e = enc_embeds
     for lp in _unstack(params["enc_layers"], cfg.n_layers):
         e = layer(e, lp)
@@ -329,7 +318,7 @@ def _encdec_stack(params, h, cfg, ctx, cache, *, mode, with_aux, remat=False,
                                           cross_states=enc_out)
         return mlp_block(lp["mlp"], h, cfg), new_kv, cross_kv
 
-    layer = _maybe_remat(layer, remat)
+    layer = maybe_remat(layer, remat)
     ks, vs, cks, cvs = [], [], [], []
     for i, lp in enumerate(_unstack(params["layers"], cfg.n_layers)):
         kv = cross = None

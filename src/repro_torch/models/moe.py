@@ -55,7 +55,10 @@ def _dispatch(xf: torch.Tensor, e_flat: torch.Tensor, Ep: int, C: int, k: int):
     n, d = e_flat.shape[0], xf.shape[1]
     order = torch.argsort(e_flat, stable=True)
     e_sorted = e_flat[order]
-    counts = torch.bincount(e_flat, minlength=Ep)
+    # a fixed-shape count (bincount's output shape depends on the data, so
+    # it does not trace under FakeTensorMode)
+    counts = torch.zeros(Ep, dtype=e_flat.dtype, device=e_flat.device).scatter_add_(
+        0, e_flat, torch.ones_like(e_flat))
     offsets = torch.cumsum(counts, 0) - counts
     pos = torch.arange(n, device=xf.device) - offsets[e_sorted]
     keep = pos < C

@@ -8,11 +8,13 @@ against ``kernels.ref.attention_ref``.
 """
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import Optional, Tuple, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 NEG_INF = -1e30
 ATTENTION_IMPLS = ("kernel", "torch")
@@ -32,11 +34,14 @@ class ShardCtx:
     ``kernels.ops.ssd_scan``, likewise) or "torch" (``ssm.ssd_chunked``).
     ``moe_row_dispatch``: route MoE tokens with a per-row capacity
     (``moe._moe_mlp_rows``) instead of one global token pool.
+    ``remat_chunk_attn``: ``attention_chunked`` recomputes each query
+    chunk's scores in the backward pass instead of keeping them.
     """
 
     attention_impl: str = "kernel"
     ssm_impl: str = "kernel"
     moe_row_dispatch: bool = False
+    remat_chunk_attn: bool = False
 
     def __post_init__(self):
         if self.attention_impl not in ATTENTION_IMPLS:
@@ -74,6 +79,17 @@ def rotary(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tens
     out = torch.stack(
         [x_even * cos - x_odd * sin, x_even * sin + x_odd * cos], dim=-1)
     return out.reshape(x.shape).to(x.dtype)
+
+
+def maybe_remat(fn, remat: bool):
+    """``fn`` under activation checkpointing when ``remat`` (the JAX
+    package's ``jax.checkpoint`` of a layer or a query chunk): its
+    activations are recomputed in the backward pass instead of kept.  The
+    model draws no random numbers, so no RNG state is stashed."""
+    if not remat:
+        return fn
+    return functools.partial(checkpoint, fn, use_reentrant=False,
+                             preserve_rng_state=False)
 
 
 def attention_reference(
@@ -122,19 +138,22 @@ def attention_chunked(
     *,
     causal: bool,
     q_chunk: int = 512,
+    remat_body: bool = False,
 ) -> torch.Tensor:
     """Query-chunked attention: O(q_chunk * Sk) live scores.
 
     The same math as ``attention_reference``, one query chunk at a time; a
-    ragged last chunk is allowed.
+    ragged last chunk is allowed.  ``remat_body`` recomputes each chunk's
+    scores in the backward pass (a non-reentrant ``torch.utils.checkpoint``
+    per chunk), so no chunk's softmax is kept between the forward and the
+    backward: the JAX package's ``jax.checkpoint`` of the chunk body.
     """
     Sq = q.shape[1]
     if Sq <= q_chunk:
         return attention_reference(q, k, v, causal=causal)
-    outs = [
-        attention_reference(q[:, i:i + q_chunk], k, v, causal=causal, q_offset=i)
-        for i in range(0, Sq, q_chunk)
-    ]
+    chunk = maybe_remat(attention_reference, remat_body)
+    outs = [chunk(q[:, i:i + q_chunk], k, v, causal=causal, q_offset=i)
+            for i in range(0, Sq, q_chunk)]
     return torch.cat(outs, dim=1)
 
 

@@ -1,4 +1,5 @@
-"""Parameter schema and seeded initialisation on one device.
+"""Parameter schema, seeded initialisation on one device, and the abstract
+parameters of a dry run.
 
 A schema is a nested dict of ``ParamSchema`` leaves; it drives parameter
 shapes and init style.  The mesh rules of ``repro.models.sharding`` wait
@@ -81,3 +82,14 @@ def init_from_schema(seed: int, schema, dtype: torch.dtype,
         return {k: walk(node[k]) for k in sorted(node)}
 
     return walk(schema)
+
+
+def abstract_from_schema(schema, dtype: torch.dtype, device) -> Dict:
+    """Empty tensors of the schema's shapes and dtypes on ``device``: the
+    counterpart of ``repro.models.sharding.abstract_from_schema``'s
+    ShapeDtypeStructs.  Call it under ``FakeTensorMode``, where it
+    allocates nothing; it draws no random numbers."""
+    device = torch.device(device)
+    return map_schema(
+        lambda ps: torch.empty(ps.shape, dtype=ps.dtype or dtype, device=device),
+        schema)

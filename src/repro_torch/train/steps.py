@@ -14,11 +14,13 @@ XLA's: the hand-written kernels have no backward.
 
 ``make_prefill_step`` / ``make_serve_step`` build the serving entry points:
 the full-sequence cache build and the one-token decode step.  Parameters
-come in the compute dtype already (``models.model.cast_params``).
+come in the compute dtype already (``models.model.cast_params``, as the
+engine casts them once), or the step casts them when given the cell's
+``tuning`` (as the JAX steps do on every call: a dry run's plan).
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -117,33 +119,46 @@ def _metric_keys(cfg: ArchConfig) -> List[str]:
     return keys
 
 
-def make_prefill_step(cfg: ArchConfig, ctx: ShardCtx = NOSHARD) -> Callable:
+def make_prefill_step(cfg: ArchConfig, ctx: ShardCtx = NOSHARD, *,
+                      tuning: Optional[CellTuning] = None) -> Callable:
     """prefill(params, batch) -> (last-token logits (B, Vp), cache).
 
     ``batch`` holds ``tokens`` and, for the encoder-decoder family,
     ``enc_embeds`` (B, enc_len, d), which ``backbone`` reads.  Only the
     last position goes through the vocab head: the logits are the same as
     the JAX step's ``logits[:, -1]`` without the (B, S, Vp) tensor it
-    builds first."""
+    builds first.  With ``tuning``, float32 parameters are cast to
+    ``tuning.compute_dtype`` inside the step, as the JAX step casts them;
+    without it they are used as they come."""
 
     @torch.inference_mode()
     def prefill_step(params, batch):
-        h, cache, _ = backbone(params, cfg, batch, ctx=ctx, mode=PREFILL)
-        return head(params, cfg, h[:, -1]), cache
+        p = _compute_params(params, tuning)
+        h, cache, _ = backbone(p, cfg, batch, ctx=ctx, mode=PREFILL)
+        return head(p, cfg, h[:, -1]), cache
 
     return prefill_step
 
 
-def make_serve_step(cfg: ArchConfig, ctx: ShardCtx = NOSHARD) -> Callable:
+def make_serve_step(cfg: ArchConfig, ctx: ShardCtx = NOSHARD, *,
+                    tuning: Optional[CellTuning] = None) -> Callable:
     """serve_step(params, cache, tokens (B,1)) -> (logits (B,Vp), cache).
 
     One new token against a KV cache of length max_len; the cache's k/v
-    are updated in place and returned."""
+    are updated in place and returned.  ``tuning`` as in
+    ``make_prefill_step``."""
 
     @torch.inference_mode()
     def serve_step(params, cache, tokens):
-        h, new_cache, _ = backbone(params, cfg, {"tokens": tokens}, ctx=ctx,
-                                mode=DECODE, cache=cache)
-        return head(params, cfg, h[:, -1]), new_cache
+        p = _compute_params(params, tuning)
+        h, new_cache, _ = backbone(p, cfg, {"tokens": tokens}, ctx=ctx,
+                                   mode=DECODE, cache=cache)
+        return head(p, cfg, h[:, -1]), new_cache
 
     return serve_step
+
+
+def _compute_params(params, tuning: Optional[CellTuning]):
+    if tuning is None:
+        return params
+    return cast_params(params, getattr(torch, tuning.compute_dtype))

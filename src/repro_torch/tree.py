@@ -63,16 +63,23 @@ def tree_map(fn: Callable, tree: Any) -> Any:
 
 
 def describe(tree: Any) -> str:
-    """The structure with ``*`` for each leaf (the checkpoint's ``treedef``)."""
+    """The structure as ``str(jax.tree.structure(tree))`` spells it, ``*`` for
+    each leaf (the checkpoint's ``treedef``, equal to the JAX package's)."""
+    return f"PyTreeDef({_spell(tree)})"
+
+
+def _spell(tree: Any) -> str:
     if tree is None:
         return "None"
     if isinstance(tree, dict):
-        inner = ", ".join(f"{key!r}: {describe(tree[key])}" for key in sorted(tree))
+        inner = ", ".join(f"{key!r}: {_spell(tree[key])}" for key in sorted(tree))
         return "{" + inner + "}"
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        inner = ", ".join(f"{f}={describe(v)}" for f, v in zip(tree._fields, tree))
-        return f"{type(tree).__name__}({inner})"
-    if isinstance(tree, (tuple, list)):
-        inner = ", ".join(describe(v) for v in tree)
-        return f"({inner})" if isinstance(tree, tuple) else f"[{inner}]"
+        inner = ", ".join(_spell(v) for v in tree)
+        return f"CustomNode(namedtuple[{type(tree).__name__}], [{inner}])"
+    if isinstance(tree, tuple):
+        inner = ", ".join(_spell(v) for v in tree)
+        return f"({inner},)" if len(tree) == 1 else f"({inner})"
+    if isinstance(tree, list):
+        return "[" + ", ".join(_spell(v) for v in tree) + "]"
     return "*"

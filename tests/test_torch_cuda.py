@@ -783,3 +783,47 @@ def test_train_step_on_card_matches_cpu(card, name):
     for got, want in zip(leaves(states["cuda"][0]), leaves(states["cpu"][0])):
         scale = max(1.0, float(want.abs().max()))
         torch.testing.assert_close(got.cpu(), want, atol=1e-4 * scale, rtol=1e-4)
+
+
+@pytest.mark.parametrize("arch,shape", [("falcon-mamba-7b", "decode_32k"),
+                                        ("zamba2-1.2b", "long_500k")])
+def test_dryrun_count_matches_real_step_on_card(card, arch, shape):
+    """A cell that fits on the card, counted on fakes on the card
+    (``run_cell``) and run for real with the plan's dtypes (seeded weights,
+    the cache's zeros): the FLOPs that FlopCounterMode counts on the real
+    tensors equal the fake count exactly, and the real peak
+    (``max_memory_allocated`` above what was allocated before the
+    arguments) is within 5% or 0.5 GB, the larger, of the fake peak."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.launch.plan import build_plan
+    from repro_torch.models.model import cache_schema
+    from repro_torch.models.schema import build_schema
+    from repro_torch.models.sharding import init_from_schema
+
+    rec = run_cell(arch, shape, device=card)
+    assert rec["status"] == "ok" and rec["device"] == "cuda"
+    plan = build_plan(arch, shape, device=card)
+    cfg, B, S = plan.arch, plan.shape.global_batch, plan.shape.seq_len
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    gen = torch.Generator(device=card).manual_seed(0)
+    args = (init_from_schema(0, build_schema(cfg),
+                             getattr(torch, plan.tuning.param_dtype), card),
+            init_from_schema(0, cache_schema(cfg, B, S, enc_len=cfg.enc_len),
+                             getattr(torch, plan.tuning.compute_dtype), card),
+            torch.randint(0, cfg.vocab, (B, 1), generator=gen, device=card,
+                          dtype=torch.int32))
+    with FlopCounterMode(display=False) as fc:
+        plan.step_fn(*args)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    logits, _ = plan.step_fn(*args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    assert fc.get_total_flops() == rec["roofline"]["flops_per_device"]
+    fake_peak = rec["memory"]["peak_bytes_per_device"]
+    assert abs(peak - fake_peak) <= max(0.05 * fake_peak, 0.5e9), (peak, fake_peak)
+    assert bool(torch.isfinite(logits).all())

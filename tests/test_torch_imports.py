@@ -37,7 +37,9 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.launch.green_placement, repro_torch.models.moe, "
             "repro_torch.train.steps, repro_torch.optim.adamw, "
             "repro_torch.data.pipeline, repro_torch.checkpoint.store, "
-            "repro_torch.ft.manager, repro_torch.launch.train; "
+            "repro_torch.ft.manager, repro_torch.launch.train, "
+            "repro_torch.launch.plan, repro_torch.launch.cost, "
+            "repro_torch.launch.roofline, repro_torch.launch.dryrun; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(SRC))

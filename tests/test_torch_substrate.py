@@ -31,7 +31,7 @@ from repro_torch.checkpoint import store
 from repro_torch.data.pipeline import DataConfig, batch_for_step
 from repro_torch.ft.manager import RestartManager, StragglerDetector, plan_elastic_mesh
 from repro_torch.optim import adamw
-from repro_torch.tree import leaves, tree_map, unflatten
+from repro_torch.tree import describe, leaves, tree_map, unflatten
 
 REL = 1e-6
 
@@ -450,6 +450,41 @@ def test_bfloat16_leaf_written_by_jax_restores_exactly(tmp_path):
     np.testing.assert_array_equal(out["a"].view(torch.int16).numpy().astype(np.int32) & 0xFFFF,
                                   bits)
     assert np.asarray(a).dtype == ml_dtypes.bfloat16
+
+
+def test_bfloat16_checkpoint_is_byte_equal_to_the_reference(tmp_path):
+    """One bfloat16 train state (and its float32 and int32 leaves) saved by
+    both packages: every ``leaf_*.npy`` byte-equal (the bf16 leaves as the
+    JAX package's "<V2" raw bytes) and ``meta.json`` equal."""
+    p, _, m, v, e = _opt_inputs(3, False)
+    bf = lambda t: jnp.asarray(t).astype(jnp.bfloat16)
+    jtree = {"params": jax.tree.map(bf, p),
+             "opt": jadamw.OptState(jnp.int32(7), jax.tree.map(bf, m),
+                                    jax.tree.map(bf, v), jax.tree.map(jnp.asarray, e))}
+    ttree = {"params": tree_map(lambda t: t.bfloat16(), _t(p)),
+             "opt": adamw.OptState(torch.tensor(7, dtype=torch.int32),
+                                   tree_map(lambda t: t.bfloat16(), _t(m)),
+                                   tree_map(lambda t: t.bfloat16(), _t(v)), _t(e))}
+    jd, td = str(tmp_path / "jax"), str(tmp_path / "port")
+    jstore.save(jd, 7, jtree, extra={"loss": 2.5})
+    store.save(td, 7, ttree, extra={"loss": 2.5})
+    names = sorted(os.listdir(os.path.join(jd, "step_7")))
+    assert names == sorted(os.listdir(os.path.join(td, "step_7")))
+    assert sum(n.startswith("leaf_") for n in names) == len(jax.tree.leaves(jtree))
+    for name in names:
+        with open(os.path.join(jd, "step_7", name), "rb") as a, \
+                open(os.path.join(td, "step_7", name), "rb") as b:
+            assert a.read() == b.read(), name
+
+
+def test_describe_spells_the_jax_treedef():
+    trees = [{"p": {"a": 1, "b": (2, None, [3, 4])}}, None, 5, (), (1,), [],
+             (1, (2,), [None, (None,)])]
+    for tree in trees:
+        assert describe(tree) == str(jax.tree.structure(tree))
+    opt = adamw.OptState(1, {"x": 1}, {"x": 2}, {"x": 3})
+    jopt = jadamw.OptState(1, {"x": 1}, {"x": 2}, {"x": 3})
+    assert describe({"o": opt}) == str(jax.tree.structure({"o": jopt}))
 
 
 # --------------------------------------------------------------------------
