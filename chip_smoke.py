@@ -15,7 +15,9 @@ Phases, each printing one JSON line:
                encoder over 1536 frames and its cross-attention of 224
                prompt tokens over them, both non-causal, bf16 and the
                encoder also float32; its decoder self-attention over 224,
-               causal) and the repo's test shapes, with its time, the plain
+               causal), causal slices of later query rows against every
+               key (``q_offset``, as sequence-parallel attention calls it)
+               and the repo's test shapes, with its time, the plain
                version's, SDPA's (a yardstick only) and the least time the
                card could take (bound_ms).  Each row names the kernel route
                its dtype takes: tensor_core_bf16 or cuda_core_f32.
@@ -217,10 +219,43 @@ Phases, each printing one JSON line:
                "eco" one): placements, constraints and stats on the card
                equal to the CPU's.  Fails when a cell errs, a skip reason
                is not cell_is_supported's, or a check of (b) or (c) fails.
+ 14. mesh    — multi-device sharding (launch/mesh.py, DTensor) with one
+               card, each part in a child process (one default process
+               group a process: ``chip_smoke.py --mesh-child PART``): (a)
+               the same 30 cells counted per device on the 16x16 mesh in
+               a fake world of 256 ranks, on CUDA fakes and on CPU fakes
+               (three children per fakes' device, a third of the archs
+               each, one thread each, all started after every timed
+               phase so that they slow none); per cell one line: per-device
+               FLOPs, bytes, fake peak and whether it fits in 80 GB, the
+               collectives by kind (those DTensor inserted on its own
+               apart), the three terms, the bottleneck, the counting
+               seconds and the replication factor (per-device FLOPs x 256
+               over the dryrun phase's one-card count).  (b) rank 0 of
+               that world runs yi-6b's and zamba2-1.2b's prefill_32k step
+               on real CUDA shards (seeded; the fake collectives leave
+               their outputs unwritten, so no value is checked): the FLOPs
+               of its local operators (launch.cost.LocalFlopCounter) equal the fake
+               count, its peak is within 5% or 0.5 GB of the fake peak,
+               each kernel launches as often as the count calls its
+               operator; ms a step beside the terms.  (c) a real 1x1 NCCL
+               mesh: qwen2-1.5b at full width in bf16 with DTensor
+               parameters and the sharded context, a prefill and a
+               decode step through the kernel route against the
+               unsharded port: logits equal bit for bit, the same flash
+               launches, wall ms of both.  (d) each kernel at the
+               per-device arguments the count recorded in (b)'s steps,
+               through its wrapper, element by element against its plain
+               version (flash's over query slices of 4,096 rows, each
+               with its causal offset): device ms, plain ms, bound, SDPA
+               ms.  Fails when a count differs card vs CPU, a cell's
+               status or skip reason is not cell_is_supported's, an ok
+               cell moves no collective byte, or a check of (b), (c) or
+               (d) fails.
 
 Then one line with each phase's seconds, one line {"kernels": [...]} (each
 kernel's ``launches_per_path`` also counts the train steps' launches under
-"train": none), the
+"train": none, and the mesh phase's under "mesh"), the
 nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Any failed check raises, so the script exits
 non-zero and prints no result; so does a run without a card or outside a
@@ -326,16 +361,18 @@ def eager_ms(fn, reps: int = 20, warm: int = 3) -> float:
     return t0.elapsed_time(t1) / reps
 
 
-def attention_bound_ms(B, Sq, Sk, H, KV, hd, causal, dtype, peaks) -> tuple:
+def attention_bound_ms(B, Sq, Sk, H, KV, hd, causal, dtype, peaks,
+                       q_offset: int = 0) -> tuple:
     """(ms, "bytes"|"operations"): the larger of the bytes each input read
     once and the output written once over the memory rate, and the
     multiply-adds of QK^T and PV over the live (query, key) pairs over the
-    peak rate for the input type."""
+    peak rate for the input type (causal: query row i, at position
+    q_offset + i, sees q_offset + i + 1 keys)."""
     import torch
 
     bf16_rate, f32_rate, mem_rate = peaks
     es = 2 if dtype == torch.bfloat16 else 4
-    pairs = Sq * (Sq + 1) // 2 if causal else Sq * Sk
+    pairs = Sq * q_offset + Sq * (Sq + 1) // 2 if causal else Sq * Sk
     flops = 4.0 * B * H * hd * pairs
     nbytes = es * B * hd * (2 * Sq * H + 2 * Sk * KV)
     t_ops = flops / (bf16_rate if dtype == torch.bfloat16 else f32_rate)
@@ -445,6 +482,12 @@ def phase_kernel(peaks) -> tuple:
     cases.append(((1, 96, 96, 2, 2, 16), True, "float32", 1.0, "S=96"))
     cases.append(((2, 64, 128, 4, 4, 32), False, "float32", 1.0, "cross"))
     cases.append(((1, 128, 128, 2, 2, 32), True, "float32", 8.0, "logits~40"))
+    # a causal slice of later query rows against every key, its mask
+    # starting at the slice's first row (a shard of a sequence-sharded q)
+    offsets = {"q_slice": 768, "q_slice_ragged": 450}
+    for dt in ("bfloat16", "float32"):
+        cases.append(((1, 256, 1024, 12, 2, 128), True, dt, 1.0, "q_slice"))
+        cases.append(((1, 100, 1000, 12, 2, 128), True, dt, 1.0, "q_slice_ragged"))
 
     timed = {case for case, _ in FLASH_AT.values()} | {"slice", "granite"}
     main_entry, at = None, {}
@@ -453,9 +496,10 @@ def phase_kernel(peaks) -> tuple:
         q = (scale * torch.randn(B, Sq, H, hd, generator=gen, device=dev)).to(dtype)
         k = (scale * torch.randn(B, Sk, KV, hd, generator=gen, device=dev)).to(dtype)
         v = torch.randn(B, Sk, KV, hd, generator=gen, device=dev).to(dtype)
-        out = flash_attention_cuda(q, k, v, causal=causal)
+        off = offsets.get(what, 0)
+        out = flash_attention_cuda(q, k, v, causal=causal, q_offset=off)
         torch.cuda.synchronize()
-        ref = flash_attention_plain(q, k, v, causal=causal)
+        ref = flash_attention_plain(q, k, v, causal=causal, q_offset=off)
         tol = 1e-4 if what == "logits~40" else TOL[dt]
         diff = (out.float() - ref.float()).abs()
         err = float(diff.max())
@@ -464,6 +508,8 @@ def phase_kernel(peaks) -> tuple:
         row = dict(shape=[B, Sq, Sk, H, KV, hd], causal=causal, dtype=dt,
                    kernel_route=FLASH_ROUTE[dt], case=what, max_abs_err=err,
                    tol=tol, ok=ok)
+        if off:
+            row["q_offset"] = off
         if what in timed:
             row["ms"] = cuda_ms(lambda: flash_attention_cuda(q, k, v, causal=causal))
             row["eager_ms"] = eager_ms(lambda: flash_attention_cuda(q, k, v, causal=causal))
@@ -2430,7 +2476,7 @@ def _dryrun_jobs(records):
     return jobs, traffic
 
 
-def phase_dryrun() -> None:
+def phase_dryrun() -> dict:
     """(a) every registry arch x DRYRUN_SHAPES counted on fakes on the card;
     (b) DRYRUN_REAL's steps run for real against their counts; (c)
     GreenPlacement fed with (a)'s records, card vs CPU."""
@@ -2482,6 +2528,511 @@ def phase_dryrun() -> None:
          checks=checks)
     if not all(checks.values()):
         raise RuntimeError(f"green placement from dry-run records differs: {checks}")
+    return records
+
+
+# -- the mesh phase -----------------------------------------------------------
+# (b)'s cells: rank 0 of the 16x16 world on real tensors, and the arch that
+# runs the same kernels where one's fake peak is over MESH_REAL_PEAK
+MESH_REAL = (("yi-6b", "prefill_32k", "yi-9b"), ("zamba2-1.2b", "prefill_32k", None))
+MESH_REAL_PEAK = 70e9
+MESH_CHIPS = 256
+MESH_CHILD_TIMEOUT = 900
+# (a)'s count runs after the timed phases, in this many children per
+# fakes' device (one thread each), so that it times nothing it slows
+MESH_COUNT_PARTS = 3
+# the flash rows' plain version runs over query slices of this many rows
+# (its (B, H, S, S) float32 scores at 32,768 positions take 17 GB)
+MESH_PLAIN_ROWS = 4096
+# (c): qwen2-1.5b's requests on the 1x1 NCCL mesh
+MESH_NCCL_BATCH, MESH_NCCL_PROMPT, MESH_NCCL_MAX = 4, 1024, 1088
+
+
+def _mesh_count_cells(device: str, part: int) -> dict:
+    """(a) in a child process: part ``part`` of MESH_COUNT_PARTS of the
+    registry archs (every MESH_COUNT_PARTS-th from the ``part``-th) x
+    DRYRUN_SHAPES counted per device on the 16x16 mesh, in one fake world
+    of 256 ranks, the fakes on ``device``."""
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.launch.mesh import fake_world
+
+    records = {}
+    with fake_world(MESH_CHIPS):
+        for arch in list(ARCHS)[part::MESH_COUNT_PARTS]:
+            for shape in DRYRUN_SHAPES:
+                records[f"{arch} {shape}"] = run_cell(arch, shape, multi_pod=False,
+                                                      device=device)
+    return {"records": records}
+
+
+def _seeded_locals(args, vocab: int, seed: int = 0) -> None:
+    """Fill each DTensor's local shard with seeded draws: floats ~ N(0,
+    0.02), integers (tokens) in the vocabulary."""
+    import torch
+
+    from repro_torch.tree import leaves
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    for t in leaves(args):
+        local = t.to_local()
+        if local.is_floating_point():
+            local.normal_(0.0, 0.02, generator=gen)
+        else:
+            local.random_(0, vocab, generator=gen)
+
+
+def _mesh_real_step(arch: str, shape: str):
+    """(b) in a child process: rank 0 of the fake 16x16 world runs the
+    cell's step on real CUDA tensors of its local shapes.  The fake
+    collectives move nothing and leave their outputs unwritten, so no value
+    is checked: its FLOPs (``launch.cost.LocalFlopCounter``) must equal
+    the fake count's, its peak memory the fake peak within DRYRUN_MEM_TOL,
+    and each kernel's launches the count's calls of its operator.  The
+    row carries the count's record of each kernel call (its per-device
+    arguments), which the kernel rows of the phase run again.  None, with
+    nothing run, where the fake peak is over MESH_REAL_PEAK."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import cost
+    from repro_torch.launch.mesh import fake_world, make_production_mesh
+    from repro_torch.launch.plan import build_plan
+
+    plan = build_plan(arch, shape, multi_pod=False, device="cuda")
+    with fake_world(plan.chips):
+        mesh = make_production_mesh(device_type="cuda")
+        with FakeTensorMode():
+            fakes = plan.abstract_args(mesh=mesh)
+        t0 = time.perf_counter()
+        totals, by_op = cost.analyze_by_op(plan.step_fn, *fakes)
+        count_s = time.perf_counter() - t0
+        calls = {name: int(by_op.get(name, (0, 0, 0))[2])
+                 for name in ("flash_attention", "ssd_scan")}
+        fake_peak = totals.memory["peak_bytes_per_device"]
+        if fake_peak > MESH_REAL_PEAK:
+            emit("mesh", case="real_step", arch=arch, shape=shape,
+                 fake_peak_bytes=fake_peak, skipped=f"fake peak over {MESH_REAL_PEAK:.0f} B")
+            return None
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        args = plan.abstract_args(mesh=mesh)           # real local shards
+        _seeded_locals(args, plan.arch.vocab)
+        with cost.LocalFlopCounter() as fc:             # also the warm-up
+            plan.step_fn(*args)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        plan.step_fn(*args)
+        torch.cuda.synchronize()
+        launches = {name: LAUNCHES[name] for name in calls}
+        peak = torch.cuda.max_memory_allocated() - base
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        reps = 3
+        t0.record()
+        for _ in range(reps):
+            plan.step_fn(*args)
+        t1.record()
+        torch.cuda.synchronize()
+        ms = t0.elapsed_time(t1) / reps
+    roof = cost_roofline(plan, totals)
+    tol = max(DRYRUN_MEM_TOL[0] * fake_peak, DRYRUN_MEM_TOL[1])
+    checks = {"flops_equal": fc.get_total_flops() == totals.flops,
+              "peak_within_tol": abs(peak - fake_peak) <= tol,
+              "launches_as_counted": launches == calls and sum(calls.values()) > 0}
+    row = dict(case="real_step", arch=arch, shape=shape, mesh="16x16 rank 0",
+               flops_real=fc.get_total_flops(), flops_fake=totals.flops,
+               peak_bytes=peak, fake_peak_bytes=fake_peak, peak_tol_bytes=tol,
+               launches=launches, counted_calls=calls, ms=ms,
+               compute_ms=1e3 * roof.compute_s, memory_ms=1e3 * roof.memory_s,
+               collective_ms=1e3 * roof.collective_s, bottleneck=roof.bottleneck,
+               count_s=count_s, kernel_calls=totals.kernel_calls, checks=checks)
+    emit("mesh", **row)
+    if not all(checks.values()):
+        raise RuntimeError(f"mesh real step checks failed on {arch} x {shape}: {checks}")
+    return row
+
+
+def cost_roofline(plan, totals):
+    from repro_torch.launch.roofline import Roofline
+
+    return Roofline(flops=totals.flops, hbm_bytes=totals.bytes,
+                    coll_bytes=totals.coll_bytes, model_flops=plan.model_flops,
+                    chips=plan.chips, compute_dtype=plan.tuning.compute_dtype)
+
+
+def _mesh_real_steps() -> dict:
+    """(b)'s cells, each with the fake peak checked first: a cell over
+    MESH_REAL_PEAK gives way to the next arch that runs the same kernels."""
+    rows = []
+    for arch, shape, instead in MESH_REAL:
+        row = _mesh_real_step(arch, shape)
+        if row is None and instead is not None:
+            row = _mesh_real_step(instead, shape)
+        if row is None:
+            raise RuntimeError(f"no arch of {arch}'s kernels fits (b)'s real step")
+        rows.append(row)
+    return {"rows": rows}
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _mesh_nccl() -> dict:
+    """(c) in a child process: a real 1x1 NCCL mesh; qwen2-1.5b at full
+    width in bf16 with the sharded context and DTensor parameters serves a
+    prefill and a decode step through the kernel route, against the
+    unsharded port on the same weights: logits equal bit for bit, the same
+    flash launches, and the host cost of DTensor's dispatch (wall ms of
+    each step, sharded beside plain)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.mesh import make_mesh_from_shape
+    from repro_torch.launch.plan import _place
+    from repro_torch.models.model import SEQ_KEYS, cache_schema, cast_params
+    from repro_torch.models.ops import ShardCtx
+    from repro_torch.models.schema import build_schema
+    from repro_torch.models.sharding import (default_rules, distribute_params,
+                                             init_from_schema, schema_to_pspecs)
+    from repro_torch.train import steps
+
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh_from_shape((1, 1), ("data", "model"), "cuda")
+        cfg = get_arch("qwen2-1.5b")
+        rules = default_rules(cfg, model_size=1, fsdp_total=1, batch_axes=("data",))
+        ctx = ShardCtx("kernel", "kernel", enabled=True, dp=("data",), tp="model",
+                       heads_sharded=rules.rules["heads_q"] is not None,
+                       ff_sharded=rules.rules["d_ff"] is not None)
+        params = cast_params(_weights(cfg), torch.bfloat16)
+        specs = schema_to_pspecs(build_schema(cfg), rules)
+        dparams = distribute_params(params, specs, mesh)
+        B, S, L = MESH_NCCL_BATCH, MESH_NCCL_PROMPT, MESH_NCCL_MAX
+        rng = np.random.default_rng(3)
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)).cuda()
+        step_tok = torch.from_numpy(rng.integers(0, cfg.vocab, (B, 1)).astype(np.int32)).cuda()
+
+        def shard_batch(t):
+            return distribute_tensor(t, mesh, [Shard(0), Replicate()])
+
+        def pooled(cache):
+            full = init_from_schema(0, cache_schema(cfg, B, L), torch.bfloat16, "cuda")
+            for key, val in cache.items():
+                if key == "pos":
+                    full[key] = val.clone()
+                elif key in SEQ_KEYS:
+                    full[key][:, :, :S] = val
+            return full
+
+        cspecs = schema_to_pspecs(cache_schema(cfg, B, L), rules)
+        runs = {}
+        for label, step_ctx, p, to in (("plain", None, params, lambda t: t),
+                                       ("sharded", ctx, dparams, shard_batch)):
+            kw = {} if step_ctx is None else {"ctx": step_ctx}
+            prefill = steps.make_prefill_step(cfg, **kw)
+            serve = steps.make_serve_step(cfg, **kw)
+            def full(t):
+                return t.full_tensor() if isinstance(t, DTensor) else t
+
+            def decode_cache(cache):
+                pool = pooled({k: full(v) for k, v in cache.items()})
+                if step_ctx is None:
+                    return pool
+                return _place(distribute_params(pool, cspecs, mesh), cspecs)
+
+            prefill(p, {"tokens": to(tokens)})            # warm-up
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            logits, cache = prefill(p, {"tokens": to(tokens)})
+            torch.cuda.synchronize()
+            prefill_ms = 1e3 * (time.perf_counter() - t0)
+            flash = LAUNCHES["flash_attention"]
+            serve(p, decode_cache(cache), to(step_tok))   # warm-up
+            pool = decode_cache(cache)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dlogits, _ = serve(p, pool, to(step_tok))
+            torch.cuda.synchronize()
+            decode_ms = 1e3 * (time.perf_counter() - t0)
+            runs[label] = dict(logits=full(logits), dlogits=full(dlogits), flash=flash,
+                               prefill_ms=prefill_ms, decode_ms=decode_ms)
+        a, b = runs["plain"], runs["sharded"]
+        checks = {"prefill_logits_bit_equal": bool(torch.equal(a["logits"], b["logits"])),
+                  "decode_logits_bit_equal": bool(torch.equal(a["dlogits"], b["dlogits"])),
+                  "flash_launches_equal": a["flash"] == b["flash"] == cfg.n_layers}
+        row = dict(case="nccl_1x1", arch=cfg.name, batch=B, prompt=S,
+                   flash_launches=b["flash"],
+                   prefill_ms={k: runs[k]["prefill_ms"] for k in runs},
+                   decode_ms={k: runs[k]["decode_ms"] for k in runs},
+                   max_abs_diff=float((a["logits"].float() - b["logits"].float()).abs().max()),
+                   checks=checks)
+        emit("mesh", **row)
+        if not all(checks.values()):
+            raise RuntimeError(f"the 1x1 NCCL mesh differs from the unsharded port: {checks}")
+        return row
+    finally:
+        dist.destroy_process_group()
+
+
+MESH_CHILDREN = {"real": _mesh_real_steps, "nccl": _mesh_nccl}
+MESH_CHILDREN.update({f"count_{dev}_{i}": (lambda dev=dev, i=i: _mesh_count_cells(dev, i))
+                      for dev in ("cuda", "cpu") for i in range(MESH_COUNT_PARTS)})
+
+
+def mesh_child(part: str) -> int:
+    """``chip_smoke.py --mesh-child PART``: one part of the mesh phase in a
+    process of its own (one default process group per process); prints its
+    lines and last one JSON line with its result."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, SRC)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if part.startswith("count"):
+        torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    out = MESH_CHILDREN[part]()
+    print(json.dumps({"part": part, "seconds": time.perf_counter() - t0, **out}), flush=True)
+    return 0
+
+
+def start_mesh_child(part: str):
+    """``chip_smoke.py --mesh-child PART`` started, its output to temporary
+    files (a pipe left unread would stall it)."""
+    import tempfile
+
+    out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--mesh-child", part],
+                            stdout=out, stderr=err, text=True, cwd=ROOT)
+    proc.files = (out, err)
+    return proc
+
+
+def stop_mesh_child(proc) -> None:
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+    for fh in proc.files:
+        fh.close()
+
+
+def join_mesh_child(proc) -> dict:
+    """The child's result; its lines but the last are printed here.  A
+    child that fails or outlives MESH_CHILD_TIMEOUT raises."""
+    try:
+        proc.wait(timeout=MESH_CHILD_TIMEOUT)
+        out, err = proc.files
+        out.seek(0)
+        err.seek(0)
+        lines = out.read().strip().splitlines()
+        if proc.returncode != 0 or not lines:
+            raise RuntimeError(f"mesh child {proc.args[-1]} exited {proc.returncode}: "
+                               f"{err.read()[-4000:]}")
+    finally:
+        stop_mesh_child(proc)
+    for line in lines[:-1]:
+        print(line, flush=True)
+    return json.loads(lines[-1])
+
+
+def _mesh_cell_row(rec, one_card) -> dict:
+    row = dict(case="cell", arch=rec["arch"], shape=rec["shape"], mesh=rec["mesh"],
+               status=rec["status"])
+    if rec["status"] != "ok":
+        row["reason"] = rec.get("reason", rec.get("error"))
+        return row
+    r = rec["roofline"]
+    peak = rec["memory"]["peak_bytes_per_device"]
+    row.update(flops=r["flops_per_device"], bytes=r["hbm_bytes_per_device"],
+               peak_gb=peak / 1e9, fits_80gb=peak <= 80e9,
+               collectives=rec["collectives"], compute_s=r["compute_s"],
+               memory_s=r["memory_s"], collective_s=r["collective_s"],
+               bottleneck=r["bottleneck"], count_s=rec["compile_s"],
+               replication=r["flops_per_device"] * MESH_CHIPS
+               / one_card["roofline"]["flops_per_device"])
+    return row
+
+
+def _count_diff(a, b) -> list:
+    """The keys in which two records of one cell differ (empty: equal)."""
+    keys = [k for k in ("status", "memory", "collectives") if a.get(k) != b.get(k)]
+    if a["status"] == "ok" and b["status"] == "ok":
+        keys += [k for k in ("flops_per_device", "hbm_bytes_per_device",
+                             "collective_bytes_per_device")
+                 if a["roofline"][k] != b["roofline"][k]]
+    return keys
+
+
+def _mesh_kernel_rows(peaks, real_rows) -> dict:
+    """Each kernel at the per-device arguments of (b)'s steps, as the count
+    recorded its calls there (each distinct call once): its device ms
+    (CUDA-graph replay), bound and library ms, held to its plain version
+    on the same inputs element by element, with TOL or SSD_TOL.  Flash is
+    called through its wrapper (``kernels.ops.flash_attention``); its plain
+    version runs over query slices of MESH_PLAIN_ROWS rows, each with its
+    causal offset, and ``plain_ms`` is that run's (eager, CUDA events);
+    ``library_ms`` is SDPA's where the call is the square product."""
+    import torch
+
+    from repro_torch.kernels import flash_attention
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.kernels.ssd_scan import ssd_scan_cuda, ssd_scan_plain
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    rows = {}
+    for real in real_rows:
+        for name, calls in sorted(real["kernel_calls"].items()):
+            for n, call in enumerate(calls):
+                key = f"{'flash' if name == 'flash_attention' else 'ssd'}_{real['arch']}" \
+                    + (f"_{n}" if len(calls) > 1 else "")
+                dtype = getattr(torch, call["dtype"])
+                if name == "flash_attention":
+                    row = _mesh_flash_row(call["args"], dtype, gen, peaks, flash_attention,
+                                          flash_attention_plain)
+                else:
+                    row = _mesh_ssd_row(call["args"], dtype, gen, peaks, ssd_scan_cuda,
+                                        ssd_scan_plain)
+                row["calls_per_step"] = call["calls"]
+                torch.cuda.empty_cache()
+                emit("mesh", case="kernel_at_local_shape", at=key, **row)
+                if not row["ok"]:
+                    raise RuntimeError(f"kernel at the mesh's local shape disagrees: {row}")
+                rows[key] = row
+    return rows
+
+
+def _mesh_flash_row(args, dtype, gen, peaks, kernel, plain_fn) -> dict:
+    import torch
+
+    (B, Sq, H, hd), (_, Sk, KV, _), _, causal, q_offset = args
+    dev = torch.device("cuda")
+    q = torch.randn(B, Sq, H, hd, generator=gen, device=dev).to(dtype)
+    k = torch.randn(B, Sk, KV, hd, generator=gen, device=dev).to(dtype)
+    v = torch.randn(B, Sk, KV, hd, generator=gen, device=dev).to(dtype)
+
+    def run():
+        return kernel(q, k, v, causal=causal, q_offset=q_offset)
+
+    def plain():
+        R = MESH_PLAIN_ROWS
+        return torch.cat([plain_fn(q[:, i:i + R], k, v, causal=causal,
+                                   q_offset=q_offset + i if causal else 0)
+                          for i in range(0, Sq, R)], dim=1)
+
+    out = run()
+    ref = plain()
+    diff = (out.float() - ref.float()).abs()
+    tol = TOL[str(dtype).removeprefix("torch.")]
+    ok = bool((diff <= tol + tol * ref.float().abs()).all()) and bool(torch.isfinite(out).all())
+    err = float(diff.max())
+    del out, ref, diff
+    library_ms = None
+    if q_offset == 0 and (Sq == Sk or not causal):
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=True), reps=5)
+    bound, by = attention_bound_ms(B, Sq, Sk, H, KV, hd, causal, dtype, peaks, q_offset)
+    return dict(kernel="flash_attention", shape=[B, Sq, Sk, H, KV, hd], causal=causal,
+                q_offset=q_offset, dtype=str(dtype).removeprefix("torch."),
+                kernel_route=FLASH_ROUTE[str(dtype).removeprefix("torch.")],
+                max_abs_err=err, tol=tol, ok=ok, ms=cuda_ms(run, reps=5),
+                plain_ms=eager_ms(plain, reps=2, warm=1), library_ms=library_ms,
+                bound_ms=bound, bound_by=by)
+
+
+def _mesh_ssd_row(args, dtype, gen, peaks, kernel, plain_fn) -> dict:
+    import torch
+
+    (B, S, nh, hp), _, _, (_, _, n), _, chunk = args
+    dev = torch.device("cuda")
+    x = torch.randn(B, S, nh, hp, generator=gen, device=dev).to(dtype)
+    dts = (torch.rand(B, S, nh, generator=gen, device=dev) * 0.1).to(dtype)
+    A = -torch.arange(1, nh + 1, dtype=torch.float32, device=dev).to(dtype)
+    Bc = torch.randn(B, S, n, generator=gen, device=dev).to(dtype)
+    Cc = torch.randn(B, S, n, generator=gen, device=dev).to(dtype)
+    y, h = kernel(x, dts, A, Bc, Cc, chunk=chunk)
+    yr, hr = plain_fn(x, dts, A, Bc, Cc, chunk=chunk)
+    tol = SSD_TOL[str(dtype).removeprefix("torch.")]
+    err = max(float((y - yr).abs().max()), float((h - hr).abs().max()))
+    ok = all(bool(((a - b).abs() <= tol + tol * b.abs()).all())
+             for a, b in ((y, yr), (h, hr)))
+    bound, by, _, _ = ssd_bound_ms(B, S, nh, hp, n, dtype, peaks)
+    return dict(kernel="ssd_scan", shape=[B, S, nh, hp, n, chunk],
+                dtype=str(dtype).removeprefix("torch."), kernel_route="cuda_core_f32",
+                max_abs_err=err, tol=tol, ok=ok,
+                ms=cuda_ms(lambda: kernel(x, dts, A, Bc, Cc, chunk=chunk), reps=5),
+                plain_ms=cuda_ms(lambda: plain_fn(x, dts, A, Bc, Cc, chunk=chunk), reps=5),
+                library_ms=None, bound_ms=bound, bound_by=by)
+
+
+def phase_mesh(one_card, peaks) -> tuple:
+    """(a) the 16x16 counts on CUDA fakes against CPU fakes, with each
+    cell's replication factor over the one-card count, in
+    MESH_COUNT_PARTS children per device, all at once, after every timed
+    phase; (b) rank 0's real steps; (c) the 1x1 NCCL mesh; then each
+    kernel at (b)'s per-device arguments.  Returns the kernels' launches
+    on the mesh path ((b)'s steps and (c)'s prefill) and the kernel rows."""
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.models.config import SHAPES, cell_is_supported
+
+    children = {(dev, i): start_mesh_child(f"count_{dev}_{i}")
+                for dev in ("cuda", "cpu") for i in range(MESH_COUNT_PARTS)}
+    try:
+        parts = {key: join_mesh_child(proc) for key, proc in children.items()}
+    finally:
+        for proc in children.values():
+            stop_mesh_child(proc)
+    cuda, cpu, seconds = {}, {}, {"cuda": [], "cpu": []}
+    for (dev, _), part in parts.items():
+        (cuda if dev == "cuda" else cpu).update(part["records"])
+        seconds[dev].append(part["seconds"])
+    failed = []
+    for key, rec in cuda.items():
+        arch, shape = key.split()
+        ok, why = cell_is_supported(ARCHS[arch], SHAPES[shape])
+        row = _mesh_cell_row(rec, one_card.get((arch, shape)))
+        diff = _count_diff(rec, cpu[key])
+        row["card_equals_cpu"] = not diff
+        if diff:
+            row["cpu"] = {k: cpu[key].get(k, cpu[key].get("roofline", {}).get(k))
+                          for k in diff}
+        emit("mesh", **row)
+        if rec["status"] != ("ok" if ok else "skipped") or rec.get("reason", "") != why:
+            failed.append(f"{key} gave {rec}")
+        if diff:
+            failed.append(f"{key} differs card vs CPU in {diff}")
+        if rec["status"] == "ok" and not rec["roofline"]["collective_bytes_per_device"] > 0:
+            failed.append(f"{key} moves no collective byte")
+    if len(cuda) != len(ARCHS) * len(DRYRUN_SHAPES) or set(cuda) != set(cpu):
+        failed.append(f"counted {len(cuda)} cells on the card, {len(cpu)} on the CPU")
+    if failed:
+        raise RuntimeError("mesh counts: " + "; ".join(failed))
+    emit("mesh", case="counts", seconds=seconds, cells=len(cuda))
+    real = join_mesh_child(start_mesh_child("real"))
+    nccl = join_mesh_child(start_mesh_child("nccl"))
+    launches = {"flash_attention": nccl["flash_launches"], "ssd_scan": 0}
+    for row in real["rows"]:
+        for name, n in row["launches"].items():
+            launches[name] += n
+    return launches, _mesh_kernel_rows(peaks, real["rows"])
 
 
 def main() -> int:
@@ -2495,8 +3046,6 @@ def main() -> int:
         return 2
     sys.path.insert(0, SRC)
 
-    from repro_torch.configs.registry import get_arch
-
     seconds = {}
 
     def timed(phase, fn, *args):
@@ -2507,6 +3056,14 @@ def main() -> int:
 
     smi, name, peaks = timed("device", phase_device)
     timed("build", phase_build)
+    return _main_phases(seconds, timed, smi, name, peaks)
+
+
+def _main_phases(seconds, timed, smi, name, peaks) -> int:
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+
     flash, flash_at = timed("kernel", phase_kernel, peaks)
     ssd = timed("ssd", phase_ssd, peaks)
 
@@ -2530,7 +3087,9 @@ def main() -> int:
     timed("fleet", phase_fleet)
     timed("green", phase_green)
     torch.cuda.empty_cache()
-    timed("dryrun", phase_dryrun)
+    one_card = timed("dryrun", phase_dryrun)
+    torch.cuda.empty_cache()
+    launches["mesh"], at_mesh = timed("mesh", phase_mesh, one_card, peaks)
     emit("seconds", **seconds)
 
     entries = []
@@ -2548,6 +3107,10 @@ def main() -> int:
             entry[key] = {k: at[k] for k in (
                 "shape", "dtype", "kernel_route", "max_abs_err", "ms",
                 "plain_ms", "bound_ms", "bound_by", "library_ms")}
+        for key, at in at_mesh.items():
+            if at["kernel"] == spec["name"]:
+                entry[f"at_mesh_{key.split('_', 1)[1]}"] = {
+                    k: v for k, v in at.items() if k not in ("kernel", "ok", "tol")}
         entries.append(entry)
     print(json.dumps({"kernels": entries}), flush=True)
     print(smi, flush=True)
@@ -2558,4 +3121,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-child"]:
+        sys.exit(mesh_child(sys.argv[2]))
     sys.exit(main())

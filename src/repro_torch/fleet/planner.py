@@ -29,10 +29,19 @@ Coupling over the SHARED node capacity (see ``fleet.problem``):
   Keeps full app parallelism; residual violations are reported.
 
 Everything runs on the scheduler's device (the CUDA card unless the
-scheduler names another).  One card plans the whole fleet: there is no
-split of the app axis over devices, so ``FleetStats.devices`` is 1 and
-``sharded`` stays False.  Decisions, notes, emissions, capacity reports
-and stats equal the JAX package's ``repro.fleet.plan_many``.
+scheduler names another).  The app axis splits over the ranks of a
+``torch.distributed`` process group, the counterpart of the JAX package's
+``shard_map`` over its devices: when a group with ``world > 1`` is open
+(every rank calling ``plan_many`` on the same fleet), each uncoupled or
+priced chunk is padded to a multiple of the world (at least one row per
+rank), each rank plans its contiguous slice of the padded rows with one
+``plan_branches`` call on its own device, and the rows are all-gathered in
+app order.  ``FleetStats.devices`` is the world size and ``sharded`` is
+True once a chunk split, as the JAX package sets them.  With no group, or
+a world of one (one card), the whole chunk is one call on one device.
+The waterfill stays one host loop, as in the JAX package.  Decisions,
+notes, emissions, capacity reports and stats equal the JAX package's
+``repro.fleet.plan_many``.
 """
 from __future__ import annotations
 
@@ -42,6 +51,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import resolve_device
 from ..core.lowering import (
@@ -281,6 +291,26 @@ def _plan_rows(kind: str, ci, ci_mean: float, cpu_cap, ram_cap, cost,
         out.fail_s, out.ls_steps)]
 
 
+def _app_world() -> Tuple[int, int]:
+    """(world size, rank) of the open process group; (1, 0) without one."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size(), dist.get_rank()
+    return 1, 0
+
+
+def _plan_rows_split(kind: str, ci, ci_mean: float, cpu_cap, ram_cap, cost,
+                     rows, cfg, green_pen: float, n_dev: int, rank: int):
+    """``_plan_rows`` of this rank's contiguous slice of the padded app
+    rows, then every rank's slice all-gathered in rank (= app) order."""
+    per = rows[0].shape[0] // n_dev
+    mine = tuple(r[rank * per:(rank + 1) * per] for r in rows)
+    outs = _plan_rows(kind, ci, ci_mean, cpu_cap, ram_cap, cost, mine, cfg,
+                      green_pen, mine[-1])
+    parts = [None] * n_dev
+    dist.all_gather_object(parts, outs)
+    return [np.concatenate(cols) for cols in zip(*parts)]
+
+
 def _chunks(seq: List[_Prep], size: int):
     for i in range(0, len(seq), size):
         yield seq[i:i + size]
@@ -311,20 +341,32 @@ def _run_group(kind: str, preps: List[_Prep], bucket: BucketSpec, cfg,
     """Run one same-shape group through the uncoupled planner, one call
     per chunk of the app axis; writes each prep's ``out`` row in place."""
     gp = cfg.green_penalty if green_pen is None else green_pen
+    n_dev, rank = _app_world()
     pos = 0
     for chunk in _chunks(preps, max_batch):
         pens = penalties[pos:pos + len(chunk)] if penalties else None
         pos += len(chunk)
         A_real = len(chunk)
         A_chunk = bucket.pad_apps(A_real)
-        sig = ("fleet", kind, A_chunk) + chunk[0].dims
+        use_shard = n_dev > 1
+        if use_shard:
+            A_chunk = max(A_chunk, n_dev)
+            if A_chunk % n_dev:
+                use_shard = False
+        sig = ("fleet", kind, A_chunk) + chunk[0].dims + (
+            (n_dev,) if use_shard else ())
         args = _chunk_args(chunk, A_chunk, pens)
         t0 = time.perf_counter()
         (ci, ci_mean, cpu_cap, ram_cap, cost), rows = _on_device(
             kind, *args, dev)
-        outs = _plan_rows(kind, ci, ci_mean, cpu_cap, ram_cap, cost, rows,
-                          cfg, gp, rows[-1])
+        if use_shard:
+            outs = _plan_rows_split(kind, ci, ci_mean, cpu_cap, ram_cap, cost,
+                                    rows, cfg, gp, n_dev, rank)
+        else:
+            outs = _plan_rows(kind, ci, ci_mean, cpu_cap, ram_cap, cost, rows,
+                              cfg, gp, rows[-1])
         _account(stats, chunk, A_chunk, sig, dev, time.perf_counter() - t0)
+        stats.sharded = stats.sharded or use_shard
         for i, prep in enumerate(chunk):
             prep.out = tuple(o[i] for o in outs[:6])
             prep.ls_steps = int(outs[6][i])
@@ -539,6 +581,8 @@ def plan_many(fleet: FleetProblem,
             fleet=fleet, results=[], emissions_g=np.zeros(0),
             capacity=empty_capacity_report(),
             coupling=fleet.coupling, stats=stats)
+
+    stats.devices = _app_world()[0]
 
     # Shape-degenerate apps (no services / no nodes) take the scheduler's
     # host path — nothing to batch, nothing consumed.

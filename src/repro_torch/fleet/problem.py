@@ -188,7 +188,7 @@ class FleetStats:
     compiles: int = 0          # first-seen program signatures this call
     plan_time_s: float = 0.0   # wall time inside the planner calls
     price_rounds: int = 0      # Lagrangian rounds actually run
-    sharded: bool = False      # apps split over devices (never, here)
+    sharded: bool = False      # the app axis split over the group's ranks
     devices: int = 1
     apps: int = 0
     padded_apps: int = 0       # phantom-app rows planned and dropped

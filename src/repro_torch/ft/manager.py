@@ -122,7 +122,9 @@ def plan_elastic_mesh(
 
     The model axis is pinned (parameter layout survives re-meshing); the
     data axis absorbs the loss; whole pods are preferred for the pod axis.
-    Returns None when fewer than model * min_data devices survive.
+    Returns None when fewer than model * min_data devices survive.  The
+    shape is what ``launch.mesh.make_mesh_from_shape(shape, ("pod",
+    "data", "model"))`` takes.
     """
     if n_devices < model * min_data:
         return None

@@ -12,7 +12,11 @@
 // Layout: q (B, Sq, H, hd), k/v (B, Sk, KV, hd), o (B, Sq, H, hd), read and
 // written through element strides for batch, sequence and head; the head
 // dimension must be contiguous.  The ragged tail of either sequence is
-// masked here, so any Sq and Sk work.  Causal masking needs Sq == Sk.
+// masked here, so any Sq and Sk work.  Causal masking reads query row i as
+// position q_offset + i (key j is live where j <= q_offset + i), and needs
+// q_offset >= 0 and q_offset + Sq <= Sk: q_offset 0 and Sq == Sk is the
+// square causal product; a positive q_offset is a slice of later query rows
+// against all keys (one shard of a sequence-sharded q).
 //
 // Two routes, picked by dtype in flash_attention_fwd (a declared choice, not
 // a fallback: both are kernels of this file and nothing is caught):
@@ -111,7 +115,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
               int64_t ksb, int64_t kss, int64_t ksh,
               int64_t vsb, int64_t vss, int64_t vsh,
               int64_t osb, int64_t oss, int64_t osh,
-              float scale, int causal) {
+              float scale, int causal, int q_offset) {
   static_assert(HD % CN == 0, "head dim must be a multiple of 8");
   constexpr int LD = HD + 1;      // padded row: conflict-free column reads
   constexpr int LP = BN + 1;
@@ -153,7 +157,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   int n_tiles = (Sk + BN - 1) / BN;
   if (causal) {
     // last query row of this tile; keys after it are in the causal future
-    const int last_q = min(q0 + BM, Sq) - 1;
+    const int last_q = q_offset + min(q0 + BM, Sq) - 1;
     n_tiles = min(n_tiles, last_q / BN + 1);
   }
 
@@ -190,7 +194,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 
 #pragma unroll
     for (int i = 0; i < RM; ++i) {
-      const int qr = q0 + ty * RM + i;
+      const int qr = q_offset + q0 + ty * RM + i;   // the row's position
       bool live[CN];
       float mx = NEG_INF;
 #pragma unroll
@@ -347,7 +351,7 @@ flash_fwd_bf16_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   int64_t ksb, int64_t kss, int64_t ksh,
                   int64_t vsb, int64_t vss, int64_t vsh,
                   int64_t osb, int64_t oss, int64_t osh,
-                  float scale_log2, int causal, int aligned) {
+                  float scale_log2, int causal, int q_offset, int aligned) {
   static_assert(HD % 8 == 0, "head dim must be a multiple of 8");
   constexpr int HDP = TcDims<HD>::HDP, LDS = TcDims<HD>::LDS;
   constexpr int NKT = BN / 8;     // 8-key column tiles of S
@@ -371,7 +375,7 @@ flash_fwd_bf16_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* vb = v + b * vsb + kvh * vsh;
 
   int n_tiles = (Sk + BN - 1) / BN;
-  if (causal) n_tiles = min(n_tiles, (min(q0 + BM, Sq) - 1) / BN + 1);
+  if (causal) n_tiles = min(n_tiles, (q_offset + min(q0 + BM, Sq) - 1) / BN + 1);
 
   load_tile<HD, BM>(Qs, qb, qss, q0, Sq, aligned);
   load_tile<HD, BN>(Ks, kb, kss, 0, Sk, aligned);
@@ -425,7 +429,7 @@ flash_fwd_bf16_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
     // online softmax in the log2 domain; masks only where the tile needs them
     const int k0 = t * BN;
-    const bool masked = k0 + BN > Sk || (causal && k0 + BN - 1 > q0);
+    const bool masked = k0 + BN > Sk || (causal && k0 + BN - 1 > q_offset + q0);
     float mx[2] = {NEG, NEG};
 #pragma unroll
     for (int j = 0; j < NKT; ++j)
@@ -434,7 +438,7 @@ flash_fwd_bf16_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
         float x = s[j][e] * scale_log2;
         if (masked) {
           const int kc = k0 + j * 8 + 2 * t4 + (e & 1);
-          const int qr = row_lo + (e >> 1) * 8;
+          const int qr = q_offset + row_lo + (e >> 1) * 8;
           if (kc >= Sk || (causal && kc > qr)) x = NEG;
         }
         s[j][e] = x;
@@ -513,7 +517,7 @@ flash_fwd_bf16_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 template <int HD>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
                        int B, int H, int KV, int Sq, int Sk,
-                       const int64_t* st, float scale, int causal,
+                       const int64_t* st, float scale, int causal, int q_offset,
                        cudaStream_t stream) {
   constexpr size_t smem = f32_smem_bytes<HD>();
   cudaError_t err = cudaFuncSetAttribute(
@@ -524,14 +528,14 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), H, KV, Sq, Sk,
       st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
-      st[9], st[10], st[11], scale, causal);
+      st[9], st[10], st[11], scale, causal, q_offset);
   return cudaGetLastError();
 }
 
 template <int HD>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
                         int B, int H, int KV, int Sq, int Sk,
-                        const int64_t* st, float scale, int causal,
+                        const int64_t* st, float scale, int causal, int q_offset,
                         cudaStream_t stream) {
   constexpr size_t smem = tc_smem_bytes<HD>();
   cudaError_t err = cudaFuncSetAttribute(
@@ -552,7 +556,8 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o), H, KV, Sq, Sk,
       st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
-      st[9], st[10], st[11], scale * 1.4426950408889634f, causal, (int)aligned);
+      st[9], st[10], st[11], scale * 1.4426950408889634f, causal, q_offset,
+      (int)aligned);
   return cudaGetLastError();
 }
 
@@ -561,12 +566,12 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
 cudaError_t dispatch(int dtype, int hd, const void* q, const void* k,
                      const void* v, void* o, int B, int H, int KV, int Sq,
                      int Sk, const int64_t* st, float scale, int causal,
-                     cudaStream_t s) {
+                     int q_offset, cudaStream_t s) {
   switch (hd) {
 #define FA_CASE(D)                                                              \
     case D:                                                                     \
-      if (dtype == 0) return launch_f32<D>(q, k, v, o, B, H, KV, Sq, Sk, st, scale, causal, s); \
-      if (dtype == 1) return launch_bf16<D>(q, k, v, o, B, H, KV, Sq, Sk, st, scale, causal, s); \
+      if (dtype == 0) return launch_f32<D>(q, k, v, o, B, H, KV, Sq, Sk, st, scale, causal, q_offset, s); \
+      if (dtype == 1) return launch_bf16<D>(q, k, v, o, B, H, KV, Sq, Sk, st, scale, causal, q_offset, s); \
       return cudaErrorInvalidValue;
     FA_DIMS(FA_CASE)
 #undef FA_CASE
@@ -597,12 +602,12 @@ int flash_attention_head_dims(int* out, int cap) {
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         int dtype, int B, int H, int KV, int Sq, int Sk,
                         int hd, const int64_t* strides, float scale,
-                        int causal, void* stream) {
+                        int causal, int q_offset, void* stream) {
   if (B <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || Sq <= 0 || Sk <= 0 ||
-      (causal && Sq != Sk))
+      q_offset < 0 || (causal ? q_offset + Sq > Sk : q_offset != 0))
     return (int)cudaErrorInvalidValue;
   return (int)dispatch(dtype, hd, q, k, v, o, B, H, KV, Sq, Sk, strides, scale,
-                       causal, static_cast<cudaStream_t>(stream));
+                       causal, q_offset, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

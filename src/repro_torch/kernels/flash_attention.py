@@ -2,8 +2,11 @@
 
 The kernel (``csrc/flash_attention.cu``) replaces the TPU kernel
 ``repro.kernels.flash_attention.flash_attention_bhsd``.  It reads the model
-layout (B, S, H, hd) through strides, so no transposes are needed, masks
-the ragged tail itself, and needs Sq == Sk only when causal.
+layout (B, S, H, hd) through strides, so no transposes are needed and
+masks the ragged tail itself.  Causal attention reads query row ``i`` as
+position ``q_offset + i`` and needs ``q_offset + Sq <= Sk``: ``q_offset``
+0 with Sq == Sk is the square causal product, a positive one a slice of
+later query rows against every key (a shard of a sequence-sharded q).
 
 ``flash_attention_cuda`` launches the kernel and raises on anything it does
 not take; it never falls back.  ``flash_attention_plain`` computes the same
@@ -23,30 +26,33 @@ _FN = None
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           causal: bool) -> None:
+           causal: bool, q_offset: int) -> None:
     if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
         raise ValueError(f"want q (B,Sq,H,hd) and k, v (B,Sk,KV,hd); got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     B, Sq, H, hd = q.shape
     if k.shape[0] != B or k.shape[3] != hd or H % k.shape[2]:
         raise ValueError(f"q {tuple(q.shape)} does not match k {tuple(k.shape)}")
-    if causal and Sq != k.shape[1]:
-        raise ValueError(f"causal attention needs Sq == Sk; got {Sq}, {k.shape[1]}")
+    if causal and not (q_offset >= 0 and q_offset + Sq <= k.shape[1]):
+        raise ValueError(f"causal attention needs 0 <= q_offset and q_offset + Sq "
+                         f"<= Sk; got q_offset {q_offset}, Sq {Sq}, Sk {k.shape[1]}")
+    if not causal and q_offset:
+        raise ValueError(f"q_offset {q_offset} means nothing without a causal mask")
     if not (q.dtype == k.dtype == v.dtype):
         raise TypeError(f"q, k, v dtypes differ: {q.dtype}, {k.dtype}, {v.dtype}")
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          *, causal: bool) -> torch.Tensor:
+                          *, causal: bool, q_offset: int = 0) -> torch.Tensor:
     """The kernel's function in plain PyTorch: float32 math, GQA by
     grouping query heads, output in q's dtype."""
-    _check(q, k, v, causal)
+    _check(q, k, v, causal, q_offset)
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     qg = q.float().reshape(B, Sq, KV, H // KV, hd)
     s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) * (1.0 / math.sqrt(hd))
     if causal:
-        keep = torch.ones(Sq, Sk, dtype=torch.bool, device=q.device).tril()
+        keep = torch.ones(Sq, Sk, dtype=torch.bool, device=q.device).tril(q_offset)
         s = s.masked_fill(~keep, float("-inf"))
     w = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", w, v.float())
@@ -60,7 +66,7 @@ def _kernel():
         fn = lib.flash_attention_fwd
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
             ctypes.POINTER(ctypes.c_int64), ctypes.c_float, ctypes.c_int,
-            ctypes.c_void_p]
+            ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         dims = (ctypes.c_int * 32)()
         lib.flash_attention_head_dims.argtypes = [ctypes.POINTER(ctypes.c_int), ctypes.c_int]
@@ -73,11 +79,11 @@ def _kernel():
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         *, causal: bool) -> torch.Tensor:
+                         *, causal: bool, q_offset: int = 0) -> torch.Tensor:
     """Launch the CUDA kernel on PyTorch's current stream; (B, Sq, H, hd)
     out in q's dtype.  Raises on what the kernel does not take and when
     the launch fails."""
-    _check(q, k, v, causal)
+    _check(q, k, v, causal, q_offset)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda or t.device != q.device:
             raise ValueError(f"{name} is on {t.device}; the kernel needs all "
@@ -104,7 +110,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                  _DTYPES[q.dtype], B, H, KV, Sq, Sk, hd, strides,
-                 1.0 / math.sqrt(hd), int(causal), stream)
+                 1.0 / math.sqrt(hd), int(causal), int(q_offset), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel failed: CUDA error {err} "
                            f"({err_str(err).decode()})")

@@ -18,6 +18,17 @@ and the JAX package's XLA attention compute the masked full score matrix;
 ``models.ssm.ssd_chunked`` the chunked SSD), so a roofline reads the same
 work whichever route computes it.
 
+On DTensors each operator runs per shard through the sharding strategy
+registered here (``register_sharding``): flash attention with the batch
+sharded, or the heads of q, k and v sharded together (each shard keeps its
+GQA groups whole); the SSD scan with the batch sharded, or its heads (x,
+dt, A and both outputs) with ``Bc``/``Cc`` replicated.  Every rule keeps
+the operator's own semantics on the local shards, so a shard's call is the
+kernel (or its plain version) on local tensors, and its fake
+implementation and FLOP formula count the local shapes.  A DTensor call
+whose placements match none of those rules raises: DTensor would
+otherwise gather the inputs to ``Replicate`` around the kernel.
+
 Neither kernel has a backward (the JAX package's Pallas kernels have none
 either): a call that autograd would have to differentiate raises, on the
 card and on the CPU alike, and falls back to nothing.  Training goes
@@ -29,6 +40,8 @@ from __future__ import annotations
 from typing import Dict, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.experimental import register_sharding
 from torch.utils.flop_counter import register_flop_formula
 
 from .flash_attention import flash_attention_cuda, flash_attention_plain
@@ -55,33 +68,59 @@ def _on_cpu_or_cuda(name: str, t: torch.Tensor) -> None:
         raise ValueError(f"{name} runs on CUDA or CPU tensors, not {t.device}")
 
 
+def _rule_of(name: str, rules, *tensors: torch.Tensor) -> None:
+    """On DTensors: raise unless, on every mesh dim, the inputs' placements
+    are one of ``rules`` (each a tuple of one placement per input)."""
+    if not any(isinstance(t, DTensor) for t in tensors):
+        return
+    if not all(isinstance(t, DTensor) for t in tensors):
+        raise TypeError(f"{name}: mixed DTensor and plain tensor inputs")
+    for m in range(tensors[0].device_mesh.ndim):
+        got = tuple(t.placements[m] for t in tensors)
+        if got not in rules:
+            raise ValueError(
+                f"{name} has no sharding rule for placements {got} on mesh dim "
+                f"{m}; constrain its inputs to one of {rules}")
+
+
 # -- flash attention ----------------------------------------------------------
 
 @torch.library.custom_op("repro_torch::flash_attention", mutates_args=(),
                          device_types="cpu")
 def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              causal: bool) -> torch.Tensor:
-    return flash_attention_plain(q, k, v, causal=causal)
+              causal: bool, q_offset: int) -> torch.Tensor:
+    # contiguous, as the fake implementation's output
+    return flash_attention_plain(q, k, v, causal=causal, q_offset=q_offset).contiguous()
 
 
 @_flash_op.register_kernel("cuda")
-def _flash_cuda(q, k, v, causal):
-    out = flash_attention_cuda(q, k, v, causal=causal)
+def _flash_cuda(q, k, v, causal, q_offset):
+    out = flash_attention_cuda(q, k, v, causal=causal, q_offset=q_offset)
     LAUNCHES["flash_attention"] += 1
     return out
 
 
 @_flash_op.register_fake
-def _flash_fake(q, k, v, causal):
+def _flash_fake(q, k, v, causal, q_offset):
     return q.new_empty(q.shape)
 
 
 @register_flop_formula(torch.ops.repro_torch.flash_attention)
-def _flash_flops(q_shape, k_shape, v_shape, causal, *args, out_shape=None,
-                 **kwargs) -> int:
+def _flash_flops(q_shape, k_shape, v_shape, causal, q_offset, *args,
+                 out_shape=None, **kwargs) -> int:
     """QK^T and PV over every (query, key) pair, causal or not."""
     B, Sq, H, hd = q_shape
     return 4 * B * H * Sq * k_shape[1] * hd
+
+
+_FLASH_RULES = ((Replicate(),) * 3, (Shard(0),) * 3, (Shard(2),) * 3)
+
+
+@register_sharding(torch.ops.repro_torch.flash_attention.default)
+def _flash_sharding(q, k, v, causal, q_offset):
+    """Per mesh dim: all replicated, the batch sharded, or the heads of q,
+    k and v sharded together (out like q)."""
+    return [([rule[0]], [*rule, None, None]) for rule in _FLASH_RULES]
 
 
 def flash_attention(
@@ -90,11 +129,15 @@ def flash_attention(
     v: torch.Tensor,      # (B, Sk, KV, hd)
     *,
     causal: bool = True,
+    q_offset: int = 0,
 ) -> torch.Tensor:
-    """Flash attention in the model layout; returns (B, Sq, H, hd)."""
+    """Flash attention in the model layout; returns (B, Sq, H, hd).
+    ``q_offset``: the position of q's first row under the causal mask (a
+    slice of later query rows against every key; 0 when Sq == Sk)."""
     _forward_only("flash_attention", q, k, v)
     _on_cpu_or_cuda("flash_attention", q)
-    return _flash_op(q, k, v, causal)
+    _rule_of("flash_attention", _FLASH_RULES, q, k, v)
+    return _flash_op(q, k, v, causal, q_offset)
 
 
 # -- SSD scan -----------------------------------------------------------------
@@ -134,6 +177,31 @@ def _ssd_flops(x_shape, dt_shape, A_shape, Bc_shape, Cc_shape, chunk, *args,
     return 2 * B_ * nc * chunk * (chunk * n + nh * chunk * hp + 2 * nh * hp * n)
 
 
+# (x, dt, A, Bc, Cc) -> (y, h_final), per mesh dim
+_SSD_RULES = {
+    (Replicate(),) * 5: (Replicate(), Replicate()),
+    (Shard(0), Shard(0), Replicate(), Shard(0), Shard(0)): (Shard(0), Shard(0)),
+    (Shard(2), Shard(2), Shard(0), Replicate(), Replicate()): (Shard(2), Shard(1)),
+}
+
+
+def ssd_out_placements(x, dt, A, Bc, Cc) -> Tuple[Tuple, Tuple]:
+    """The placements of (y, h_final) of an SSD scan of DTensors whose
+    placements are, on every mesh dim, one of the strategy's rules (raises
+    otherwise)."""
+    _rule_of("ssd_scan", tuple(_SSD_RULES), x, dt, A, Bc, Cc)
+    outs = [_SSD_RULES[tuple(t.placements[m] for t in (x, dt, A, Bc, Cc))]
+            for m in range(x.device_mesh.ndim)]
+    return tuple(o[0] for o in outs), tuple(o[1] for o in outs)
+
+
+@register_sharding(torch.ops.repro_torch.ssd_scan.default)
+def _ssd_sharding(x, dt, A, Bc, Cc, chunk):
+    """Per mesh dim: all replicated, the batch sharded (A replicated), or
+    the heads sharded (x, dt, A, y and h_final; Bc/Cc replicated)."""
+    return [(list(outs), [*ins, None]) for ins, outs in _SSD_RULES.items()]
+
+
 def ssd_scan(
     x: torch.Tensor,      # (B, S, nh, hp)
     dt: torch.Tensor,     # (B, S, nh)
@@ -148,4 +216,5 @@ def ssd_scan(
     (it equals the JAX wrapper's dt = 0 padding), so nothing is padded."""
     _forward_only("ssd_scan", x, dt, A, Bc, Cc)
     _on_cpu_or_cuda("ssd_scan", x)
+    _rule_of("ssd_scan", tuple(_SSD_RULES), x, dt, A, Bc, Cc)
     return _ssd_op(x, dt, A, Bc, Cc, chunk)

@@ -1,4 +1,4 @@
-"""Roofline terms of one card's step, from ``launch.cost``'s counts.
+"""Roofline terms of one device's step, from ``launch.cost``'s counts.
 
 The port's counterpart of ``repro.launch.hlo_analysis.Roofline``: the same
 fields, properties and ``to_dict``, with the constants of one NVIDIA H100
@@ -6,10 +6,16 @@ SXM (80 GB HBM3; NVIDIA's data sheet, dense rates at the full 700 W power
 limit):
   989 TFLOP/s bf16 on the tensor cores  |  67 TFLOP/s float32 outside them
   3.35 TB/s HBM  |  NVLink 450 GB/s each way to the other cards of a host
-The compute peak is the one of the plan's compute dtype.  On one card the
-collective term is 0.  ``hlo_analysis.collective_bytes`` parses XLA text
-the port never makes: counting collectives waits for the multi-device
-slice (ROADMAP queue 1, item 6).
+The compute peak is the one of the plan's compute dtype.  The collective
+term is the per-device collective operand bytes (``launch.cost``, the
+counterpart of ``hlo_analysis.collective_bytes``) over ``LINK_BW``, as the
+JAX ``Roofline`` divides by its link rate; on one card it is 0.
+
+One NVLink rate is a lower bound on the collective time of the production
+meshes: an HGX H100 host joins 8 cards by NVLink, so a 16-wide model axis
+(and every data or pod axis) crosses hosts, whose links (InfiniBand, about
+50 GB/s a card each way) are an order of magnitude slower.  A two-tier
+link model is not part of the JAX package's roofline either (ROADMAP).
 """
 from __future__ import annotations
 

@@ -19,6 +19,22 @@ written at prefill and only read by decode).  Decode updates the cache's
 tensors IN PLACE (k/v at the new position; the mamba conv and SSM states
 whole) and returns them, where the JAX package returns updated copies.
 
+Sharded (``ctx.enabled``, DTensor parameters and inputs on a mesh): the
+step is the JAX package's SPMD program written out for DTensor.  Every
+``ctx.act``/``ctx.res`` site of ``repro.models.model`` redistributes the
+activation there; each layer gathers its weights over the FSDP axes at
+their point of use (``ShardCtx.gather``); plain tensors made inside the
+step (positions, masks) count as replicated (``launch.mesh.plain_tensors_replicated``).
+What DTensor has no rule for runs per shard in ``local_map`` with the
+placements the JAX constraints name.  A block's output projection, a
+partial sum over the model axis where its weight is sharded there, is
+reduced by the residual constraint before the residual add (``ctx.res``),
+where XLA reduces it; DTensor would otherwise carry the partial sum into
+the next norm.  ``local_map`` runs: GQA attention whose q heads are
+sharded while its kv heads are not (``_attend``), a cache write into a
+sequence-sharded cache (``_write_cache``), the MoE dispatch and the
+mamba1 scan.
+
 Parameters must already be in the compute dtype: ``cast_params`` casts them
 once, where ``repro.models.model.forward`` casts on every call (which in
 eager PyTorch would copy every weight each decode step).  Training casts
@@ -29,8 +45,14 @@ from __future__ import annotations
 
 from typing import Dict, List, Optional, Tuple
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+from repro_torch.launch.mesh import (local_shape_and_offset, per_shard,
+                                     plain_tensors_replicated, redistribute)
 
 from .config import ArchConfig, Family, MLPKind
 from .moe import moe_mlp
@@ -84,6 +106,7 @@ def attention_block(
     ``_cross_from_cache``.
     Returns (residual output, (k, v) for the cache).
     """
+    p = ctx.gather(p)
     h = rms_norm(x, p["ln"], cfg.norm_eps)
     src = h if cross_states is None else cross_states
     q = _proj(h, p["wq"])
@@ -104,33 +127,189 @@ def attention_block(
         rope_pos = (pos[:, None] if per_slot else pos) + steps
         q = rotary(q, rope_pos, cfg.rope_theta)
         k = rotary(k, rope_pos, cfg.rope_theta)
-        if per_slot:
-            b_idx = torch.arange(kc.shape[0], device=x.device)
-            kc[b_idx, pos.long()] = k[:, 0].to(kc.dtype)
-            vc[b_idx, pos.long()] = v[:, 0].to(vc.dtype)
-        else:
-            kc.index_copy_(1, pos.long() + steps, k.to(kc.dtype))
-            vc.index_copy_(1, pos.long() + steps, v.to(vc.dtype))
-        out = attention_reference(q, kc, vc, causal=False, kv_len=pos + S)
+        _write_cache(kc, k, pos, steps)
+        _write_cache(vc, v, pos, steps)
+        out = _attend_cache(q, kc, vc, ctx, kv_len=pos + S)
         new_kv = (kc, vc)
     else:
         if use_rope:
             q = rotary(q, torch.arange(S, device=x.device), cfg.rope_theta)
             k = rotary(k, torch.arange(k.shape[1], device=x.device), cfg.rope_theta)
-        if ctx.attention_impl == "kernel":
-            from repro_torch.kernels.ops import flash_attention
-
-            out = flash_attention(q, k, v, causal=causal).to(q.dtype)
+        seq_par = ctx.seq_parallel_attn and ctx.heads is None \
+            and ctx.tp is not None
+        if seq_par:
+            # heads don't divide the model axis: shard the SEQUENCE dim of
+            # q over it (k/v stay replicated), so the attention compute
+            # and its S^2 score buffers split instead of replicating
+            q = ctx.act(q, ctx.dp, ctx.tp, None, None)
+            k = ctx.act(k, ctx.dp, None, None, None)
+            v = ctx.act(v, ctx.dp, None, None, None)
+            out = _attend_seq_parallel(q, k, v, causal, ctx)
+            out = ctx.act(out, ctx.dp, ctx.tp, None, None)
         else:
-            out = attention_chunked(q, k, v, causal=causal,
-                                    remat_body=ctx.remat_chunk_attn)
+            q = ctx.act(q, ctx.dp, None, ctx.heads, None)
+            out = _attend(q, k, v, causal, ctx)
         new_kv = (k, v)
-    B = x.shape[0]
-    proj = out.reshape(B, S, -1) @ p["wo"].reshape(-1, cfg.d_model)
-    return x + proj, new_kv
+    return x + ctx.res(_out_proj(out, p["wo"])), new_kv
 
 
-def mlp_block(p: Dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """einsum('bshk,hkd->bsd'): one matmul over the flattened heads; on
+    DTensors the einsum itself, which contracts a sharded head dim where a
+    flattening could not keep it sharded."""
+    if isinstance(out, DTensor):
+        return torch.einsum("bshk,hkd->bsd", out, wo)
+    return out.reshape(*out.shape[:2], -1) @ wo.reshape(-1, wo.shape[-1])
+
+
+def _attend_cache(q, kc, vc, ctx: ShardCtx, kv_len=None) -> torch.Tensor:
+    """Decode attention over a cache (self or cross), the JAX package's
+    head-dim-sharded constraint on the cache: q follows k onto the head
+    dim (its heads whole), and the output goes back to the heads' layout
+    for the output projection."""
+    kc = ctx.act(kc, ctx.dp, None, None, ctx.tp)
+    vc = ctx.act(vc, ctx.dp, None, None, ctx.tp)
+    q = ctx.act(q, ctx.dp, None, None, ctx.tp)
+    out = attention_reference(q, kc, vc, causal=False, kv_len=kv_len)
+    return ctx.act(out, ctx.dp, None, ctx.heads, None)
+
+
+def _attention_core(q, k, v, causal, ctx):
+    if ctx.attention_impl == "kernel":
+        from repro_torch.kernels.ops import flash_attention
+
+        return flash_attention(q, k, v, causal=causal).to(q.dtype)
+    return attention_chunked(q, k, v, causal=causal, remat_body=ctx.remat_chunk_attn)
+
+
+def _attend(q, k, v, causal: bool, ctx: ShardCtx) -> torch.Tensor:
+    """Prefill / train attention.  On DTensors each mesh dim has q, k and v
+    all replicated, batch-sharded together or heads-sharded together (the
+    kernel's rules), or the q heads sharded with the kv heads replicated.
+    The kernel route calls the operator on the DTensors (its sharding
+    strategy runs it per shard); the plain route runs per shard in
+    ``local_map``, which DTensor's own rules would take apart into
+    strided-shard views of the chunked einsums.
+
+    GQA with the q heads sharded over the model axis and the kv heads
+    replicated (yi-6b: 32 q heads, 4 kv heads, a 16-wide axis), on either
+    route: the local kernel would pair local q head ``h`` with kv head
+    ``h // G``, where the right one is ``(rank * H_local + h) // G``.  Each
+    shard then slices the kv heads its q heads need (``local_map``): one kv
+    head for all of them when ``G`` is a multiple of ``H_local``, a
+    contiguous block of ``H_local / G`` when ``H_local`` is a multiple of
+    ``G``, else one kv head per q head.  Their gradient is a partial sum
+    over the model axis."""
+    if not isinstance(q, DTensor):
+        return _attention_core(q, k, v, causal, ctx)
+    mesh = q.device_mesh
+    names = mesh.mesh_dim_names
+    m = names.index(ctx.tp) if ctx.tp in names else None
+    for d in range(mesh.ndim):
+        got = (q.placements[d], k.placements[d], v.placements[d])
+        if got not in _ATTEND_RULES:
+            raise ValueError(f"attention has no per-shard rule for {got} on "
+                             f"mesh dim {names[d]!r}")
+    sliced = m is not None and q.placements[m] == Shard(2) \
+        and k.placements[m] != Shard(2)
+    if ctx.attention_impl == "kernel" and not sliced:
+        return _attention_core(q, k, v, causal, ctx)
+    H, KV = q.shape[2], k.shape[2]
+    G = H // KV
+    Hl = H // mesh.size(m) if sliced else H
+
+    def local(ql, kl, vl):
+        if sliced:
+            first = mesh.get_local_rank(m) * Hl
+            lo, hi = first // G, (first + Hl - 1) // G + 1
+            if Hl % G == 0 or G % Hl == 0:
+                idx = torch.arange(lo, hi, device=kl.device)
+            else:
+                idx = (first + torch.arange(Hl, device=kl.device)) // G
+            kl, vl = kl.index_select(2, idx), vl.index_select(2, idx)
+        return _attention_core(ql, kl, vl, causal, ctx)
+
+    return per_shard(local, out=(q.placements,),
+                     ins=(q.placements, k.placements, v.placements), mesh=mesh)(q, k, v)
+
+
+def _attend_seq_parallel(q, k, v, causal: bool, ctx: ShardCtx) -> torch.Tensor:
+    """Attention of a sequence-sharded q (its rows split over the model
+    axis) against k and v replicated there.  The plain route is the masked
+    full product, as the JAX package's sequence-parallel path (no
+    query-chunk loop: a shard's score slab is already 1/n of S^2).  The
+    kernel route runs the kernel on each shard's rows against every key,
+    its causal mask starting at the shard's first row (``q_offset``); its
+    FLOP formula counts those rows against every key, as the plain route's
+    product does, so both routes count the same."""
+    if ctx.attention_impl != "kernel":
+        return attention_reference(q, k, v, causal=causal)
+    if not isinstance(q, DTensor):
+        return _attention_core(q, k, v, causal, ctx)
+    from repro_torch.kernels.ops import flash_attention
+
+    mesh = q.device_mesh
+    m = mesh.mesh_dim_names.index(ctx.tp)
+    if q.placements[m] != Shard(1) or k.placements[m] != Replicate() \
+            or v.placements[m] != Replicate():
+        raise ValueError("sequence-parallel attention wants q's rows sharded "
+                         f"and k, v replicated on {ctx.tp!r}; got {q.placements}, "
+                         f"{k.placements}, {v.placements}")
+    first = local_shape_and_offset(q.shape, mesh, q.placements)[1][1]
+
+    def local(ql, kl, vl):
+        return flash_attention(ql, kl, vl, causal=causal,
+                               q_offset=first if causal else 0).to(ql.dtype)
+
+    return per_shard(local, out=(q.placements,),
+                     ins=(q.placements, k.placements, v.placements), mesh=mesh)(q, k, v)
+
+
+# per mesh dim (q, k, v): replicated, batch-sharded, heads-sharded, or q
+# heads sharded against replicated kv heads (sliced per shard)
+_ATTEND_RULES = ((Replicate(),) * 3, (Shard(0),) * 3, (Shard(2),) * 3,
+                 (Shard(2), Replicate(), Replicate()))
+
+
+def _write_cache(c: torch.Tensor, new: torch.Tensor, pos: torch.Tensor,
+                 steps: torch.Tensor) -> None:
+    """Write ``new`` (B, S, ...) into the cache view ``c`` (B, S_max, ...)
+    at ``pos`` IN PLACE: ``pos`` a scalar (every slot at one position) or a
+    (B,) vector (continuous batching: each slot at its own position).
+
+    On a DTensor cache the write is local: ``new`` is first given the
+    cache's placements, then each shard writes its part.  Where the cache's
+    sequence dim is sharded (a batch-1 long-context cell), each shard owns
+    a range of positions: it writes the rows of ``pos`` that fall in its
+    range and rewrites its own values elsewhere (a masked write, no branch
+    on the position)."""
+    if not isinstance(c, DTensor):
+        if pos.ndim == 1:
+            c[torch.arange(c.shape[0], device=c.device), pos.long()] = \
+                new[:, 0].to(c.dtype)
+        else:
+            c.index_copy_(1, pos.long() + steps, new.to(c.dtype))
+        return
+    if pos.ndim != 0:
+        raise NotImplementedError("per-slot positions on a sharded cache")
+    new = redistribute(new.to(c.dtype), c.placements).to_local()
+    pos = pos.to_local() if isinstance(pos, DTensor) else pos
+    cl = c.to_local()
+    _, offset = local_shape_and_offset(c.shape, c.device_mesh, c.placements)
+    idx = pos.long() + steps.to(pos.device) - offset[1]
+    if cl.shape[1] == c.shape[1]:
+        cl.index_copy_(1, idx, new)
+        return
+    inside = (idx >= 0) & (idx < cl.shape[1])
+    idx = idx.clamp(0, cl.shape[1] - 1)
+    keep = cl.index_select(1, idx)
+    mask = inside.reshape(1, -1, *([1] * (cl.ndim - 2)))
+    cl.index_copy_(1, idx, torch.where(mask, new, keep))
+
+
+def mlp_block(p: Dict, x: torch.Tensor, cfg: ArchConfig,
+              ctx: ShardCtx = NOSHARD) -> torch.Tensor:
+    p = ctx.gather(p)
     h = rms_norm(x, p["ln"], cfg.norm_eps)
     if cfg.mlp == MLPKind.GATED_SILU:
         u = F.silu(h @ p["w_gate"]) * (h @ p["w_up"])
@@ -141,7 +320,8 @@ def mlp_block(p: Dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
         u = F.gelu(u, approximate="tanh")
     else:  # RELU2 (nemotron)
         u = torch.square(F.relu(h @ p["w_up"]))
-    out = u @ p["w_down"]
+    u = ctx.act(u, ctx.dp, None, ctx.tp if ctx.ff_sharded else None)
+    out = ctx.res(u @ p["w_down"])
     if "b_down" in p:
         out = out + p["b_down"]
     return x + out
@@ -172,8 +352,8 @@ def _dense_stack(params, h, cfg, ctx, cache, *, mode, with_aux, remat=False):
             y, aux = moe_mlp(lp["moe"], h, cfg, ctx, with_aux=with_aux)
             h = h + y
         else:
-            h = mlp_block(lp["mlp"], h, cfg)
-        return h, new_kv, aux
+            h = mlp_block(lp["mlp"], h, cfg, ctx)
+        return ctx.res(h), new_kv, aux
 
     layer = maybe_remat(layer, remat)
     ks, vs, auxes = [], [], []
@@ -203,7 +383,8 @@ def _ssm_stack(params, h, cfg, ctx, cache, *, mode, with_aux, remat=False):
     pos0 = cache["pos"] if cache is not None else None
 
     def layer(h, lp, lc):
-        return mamba1_block(lp, h, cfg, ctx, cache=lc, return_state=mode == PREFILL)
+        h, st = mamba1_block(lp, h, cfg, ctx, cache=lc, return_state=mode == PREFILL)
+        return ctx.res(h), st
 
     layer = maybe_remat(layer, remat)
     states = []
@@ -235,7 +416,8 @@ def _hybrid_stack(params, h, cfg, ctx, cache, *, mode, with_aux, remat=False):
     shared = params["shared"]
 
     def m2_layer(h, lp, lc):
-        return mamba2_block(lp, h, cfg, ctx, cache=lc, return_state=mode == PREFILL)
+        h, st = mamba2_block(lp, h, cfg, ctx, cache=lc, return_state=mode == PREFILL)
+        return ctx.res(h), st
 
     m2_layer = maybe_remat(m2_layer, remat)
     states, ks, vs = [], [], []
@@ -250,7 +432,7 @@ def _hybrid_stack(params, h, cfg, ctx, cache, *, mode, with_aux, remat=False):
                 if cache is not None else None
             h, (k, v) = attention_block(shared["attn"], h, cfg, ctx, mode=mode,
                                         kv_cache=kv)
-            h = mlp_block(shared["mlp"], h, cfg)
+            h = ctx.res(mlp_block(shared["mlp"], h, cfg, ctx))
             if mode == PREFILL:
                 ks.append(k)
                 vs.append(v)
@@ -274,25 +456,26 @@ def encoder(params: Dict, cfg: ArchConfig, enc_embeds: torch.Tensor, *,
 
     def layer(e, lp):
         e, _ = attention_block(lp["attn"], e, cfg, ctx, mode=TRAIN, causal=False)
-        return mlp_block(lp["mlp"], e, cfg)
+        return ctx.res(mlp_block(lp["mlp"], e, cfg, ctx))
 
     layer = maybe_remat(layer, remat)
     e = enc_embeds
     for lp in _unstack(params["enc_layers"], cfg.n_layers):
         e = layer(e, lp)
-    return rms_norm(e, params["enc_final_norm"], cfg.norm_eps)
+    return rms_norm(e, ctx.gather(params["enc_final_norm"]), cfg.norm_eps)
 
 
 def _cross_from_cache(p: Dict, x: torch.Tensor, cfg: ArchConfig,
-                      ck: torch.Tensor, cv: torch.Tensor) -> torch.Tensor:
+                      ck: torch.Tensor, cv: torch.Tensor,
+                      ctx: ShardCtx = NOSHARD) -> torch.Tensor:
     """Residual cross-attention against the cached encoder K/V (decode):
     every one of the enc_len keys, no rope, no mask."""
+    p = ctx.gather(p)
     h = rms_norm(x, p["ln"], cfg.norm_eps)
     q = _proj(h, p["wq"])
     if cfg.qkv_bias:
         q = q + p["bq"]
-    out = attention_reference(q, ck, cv, causal=False)
-    return x + out.reshape(*x.shape[:2], -1) @ p["wo"].reshape(-1, cfg.d_model)
+    return x + ctx.res(_out_proj(_attend_cache(q, ck, cv, ctx), p["wo"]))
 
 
 def _encdec_stack(params, h, cfg, ctx, cache, *, mode, with_aux, remat=False,
@@ -311,12 +494,12 @@ def _encdec_stack(params, h, cfg, ctx, cache, *, mode, with_aux, remat=False,
     def layer(h, lp, kv, cross_kv):
         h, new_kv = attention_block(lp["attn"], h, cfg, ctx, mode=mode, kv_cache=kv)
         if mode == DECODE:
-            h = _cross_from_cache(lp["cross"], h, cfg, *cross_kv)
+            h = _cross_from_cache(lp["cross"], h, cfg, *cross_kv, ctx=ctx)
         else:
             h, cross_kv = attention_block(lp["cross"], h, cfg, ctx, mode=mode,
                                           causal=False, use_rope=False,
                                           cross_states=enc_out)
-        return mlp_block(lp["mlp"], h, cfg), new_kv, cross_kv
+        return ctx.res(mlp_block(lp["mlp"], h, cfg, ctx)), new_kv, cross_kv
 
     layer = maybe_remat(layer, remat)
     ks, vs, cks, cvs = [], [], [], []
@@ -365,16 +548,51 @@ def backbone(params: Dict, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *,
     if cfg.family in (Family.ENC_DEC, Family.AUDIO):
         enc = batch.get("enc_embeds")
         extra["enc_embeds"] = None if enc is None else enc.to(params["embed"].dtype)
-    h = params["embed"][batch["tokens"]]
-    h, new_cache, aux = _STACKS[cfg.family](params, h, cfg, ctx, cache, mode=mode,
-                                            with_aux=with_aux, remat=remat, **extra)
-    return rms_norm(h, params["final_norm"], cfg.norm_eps), new_cache, aux
+    sharded = ctx.enabled and isinstance(params["embed"], DTensor)
+    with plain_tensors_replicated() if sharded else contextlib.nullcontext():
+        if sharded:
+            h = _embed(ctx.gather(params["embed"]), batch["tokens"])
+        else:
+            h = params["embed"][batch["tokens"]]
+        h = ctx.res(h)
+        h, new_cache, aux = _STACKS[cfg.family](params, h, cfg, ctx, cache, mode=mode,
+                                                with_aux=with_aux, remat=remat, **extra)
+        h = rms_norm(h, ctx.gather(params["final_norm"]), cfg.norm_eps)
+    return h, new_cache, aux
 
 
-def head(params: Dict, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
-    """Logits (..., Vp); the tied embedding or the separate lm_head."""
-    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return h @ w
+def _embed(table: DTensor, tokens: torch.Tensor) -> DTensor:
+    """Rows of a (vocab-sharded) embedding table: each shard gathers the
+    tokens that fall in its slice and zeros elsewhere, a partial sum over
+    the vocab's mesh dims that the residual constraint reduces (the
+    gradient lands in the owning shard's rows)."""
+    mesh, pl = table.device_mesh, table.placements
+    if not isinstance(tokens, DTensor):
+        tokens = DTensor.from_local(tokens, mesh, [Replicate()] * mesh.ndim,
+                                    run_check=False)
+    vocab = [m for m, p in enumerate(pl) if isinstance(p, Shard) and p.dim == 0]
+    out = tuple(Partial() if m in vocab else p for m, p in enumerate(tokens.placements))
+    first = local_shape_and_offset(table.shape, mesh, pl)[1][0]
+
+    def lookup(w, t):
+        idx = t.long() - first
+        inside = (idx >= 0) & (idx < w.shape[0])
+        rows = w[idx.clamp(0, w.shape[0] - 1)]
+        return torch.where(inside[..., None], rows, torch.zeros_like(rows))
+
+    return per_shard(lookup, out=(out,), ins=(pl, tokens.placements),
+                     mesh=mesh)(table, tokens)
+
+
+def head(params: Dict, cfg: ArchConfig, h: torch.Tensor,
+         ctx: ShardCtx = NOSHARD) -> torch.Tensor:
+    """Logits (..., Vp); the tied embedding or the separate lm_head,
+    sharded over the vocab as ``repro.models.model.forward``'s logits."""
+    w = ctx.gather(params["embed"]).T if cfg.tie_embeddings \
+        else ctx.gather(params["lm_head"])
+    with plain_tensors_replicated() if isinstance(h, DTensor) else contextlib.nullcontext():
+        logits = h @ w
+    return ctx.act(logits, ctx.dp, *([None] * (h.ndim - 2)), ctx.tp)
 
 
 def forward(
@@ -392,7 +610,7 @@ def forward(
     ``remat`` checkpoints each layer, as the JAX ``forward``'s does."""
     h, new_cache, aux = backbone(params, cfg, batch, ctx=ctx, mode=mode,
                                  cache=cache, with_aux=True, remat=remat)
-    return head(params, cfg, h), new_cache, aux
+    return head(params, cfg, h, ctx), new_cache, aux
 
 
 def cache_schema(cfg: ArchConfig, batch: int, max_len: int, enc_len: int = 0) -> Dict:

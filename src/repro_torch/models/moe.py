@@ -18,6 +18,21 @@ the reference, or differently from run to run:
     contributions are gathered per token in that order and summed as a
     fixed sequence of float32 adds, never by atomics, so every run on the
     card gives the same bits.
+
+Sharded (DTensor parameters, ``ctx.enabled``): experts over the model
+axis (``ctx.act(buf, tp, ...)``, the JAX package's EP constraints), the
+router gathered whole.  Routing stays in DTensor's ops, so the aux losses'
+gradients need no care; the sort-based dispatch, the expert products and
+the combine, which DTensor has no rule for, run per shard in
+``local_map``:
+  * global dispatch: the token pool is replicated first (a global sort
+    needs every token, as XLA's does), and each rank fills its experts'
+    rows of the buffer (the routing is the whole pool's on every rank);
+  * row dispatch: each data shard dispatches its own rows;
+  * combine: each rank adds the contributions of its own experts, a
+    partial sum over the model axis that the residual constraint reduces
+    (the (T, d) collective the JAX comment asks XLA for, not (T*k, d)).
+    The gates' gradient is partial over that axis too.
 """
 from __future__ import annotations
 
@@ -25,6 +40,9 @@ from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate
+
+from repro_torch.launch.mesh import per_shard, redistribute, spec_to_placements
 
 from .config import ArchConfig, MLPKind
 from .ops import ShardCtx, rms_norm
@@ -48,10 +66,14 @@ def _route(xn: torch.Tensor, p: Dict, cfg: ArchConfig):
     return logits, probs, gates, idx
 
 
-def _dispatch(xf: torch.Tensor, e_flat: torch.Tensor, Ep: int, C: int, k: int):
+def _dispatch(xf: torch.Tensor, e_flat: torch.Tensor, Ep: int, C: int, k: int,
+              first: int = 0, n_local: int = None):
     """Sort-based dispatch of one token pool.  xf: (T, d); e_flat: (T*k,)
     expert ids in (token, rank) order.  Returns the expert buffer (Ep, C, d)
-    and the sorted routing: order, e_sorted, pos_c, keep."""
+    and the sorted routing: order, e_sorted, pos_c, keep.  With ``n_local``
+    the buffer holds only experts ``first .. first + n_local - 1``
+    (n_local, C, d), the rows of one expert-parallel shard; the routing is
+    the whole pool's."""
     n, d = e_flat.shape[0], xf.shape[1]
     order = torch.argsort(e_flat, stable=True)
     e_sorted = e_flat[order]
@@ -66,8 +88,14 @@ def _dispatch(xf: torch.Tensor, e_flat: torch.Tensor, Ep: int, C: int, k: int):
     # kept entries have distinct (expert, pos) slots; dropped ones go to a
     # scratch row C that is cut off, so the buffer holds what the
     # reference's scatter-add of zeros for them leaves: the kept tokens
-    buf = xf.new_zeros(Ep, C + 1, d)
-    buf[e_sorted, torch.where(keep, pos, C)] = xf[order // k]
+    if n_local is None:
+        buf = xf.new_zeros(Ep, C + 1, d)
+        buf[e_sorted, torch.where(keep, pos, C)] = xf[order // k]
+        return buf[:, :C], order, e_sorted, pos_c, keep
+    e_local = e_sorted - first
+    mine = keep & (e_local >= 0) & (e_local < n_local)
+    buf = xf.new_zeros(n_local, C + 1, d)
+    buf[e_local.clamp(0, n_local - 1), torch.where(mine, pos, C)] = xf[order // k]
     return buf[:, :C], order, e_sorted, pos_c, keep
 
 
@@ -113,6 +141,8 @@ def moe_mlp(
     ``with_aux=False`` skips the aux losses (the serving steps discard
     them) and returns ``{}``.
     """
+    if ctx.enabled and isinstance(x, DTensor):
+        return _moe_mlp_sharded(ctx.gather(p), x, cfg, ctx, with_aux=with_aux)
     if ctx.moe_row_dispatch:
         return _moe_mlp_rows(p, x, cfg, with_aux=with_aux)
     moe = cfg.moe
@@ -176,3 +206,89 @@ def _moe_mlp_rows(
     if with_aux:
         aux = _aux(logits, probs, idx, torch.stack([m[2] for m in metas]), Ep)
     return torch.stack(ys), aux
+
+
+def _combine_local(out_buf, gates, e_tok, pos_tok, keep_tok, first, S, k):
+    """Per row of ``out_buf`` (R, E_l, C, d): each token's gated outputs of
+    the experts ``first .. first + E_l - 1`` (the others add 0), summed
+    over its ranks in float32; (R, S, d) in ``out_buf``'s dtype.
+    e_tok/pos_tok/keep_tok: (R, S*k) in token order."""
+    El = out_buf.shape[1]
+    local = e_tok - first
+    mine = keep_tok & (local >= 0) & (local < El)
+    ys = []
+    for r in range(out_buf.shape[0]):
+        gathered = out_buf[r][local[r].clamp(0, El - 1), pos_tok[r]]   # (S*k, d)
+        contrib = torch.where(mine[r][:, None],
+                              gathered * gates[r].reshape(-1)[:, None], 0.0)
+        ys.append(_serial_sum(contrib.view(S, k, -1)).to(out_buf.dtype))
+    return torch.stack(ys)
+
+
+def _moe_mlp_sharded(p, x, cfg, ctx, *, with_aux):
+    """``moe_mlp`` on DTensors (module docstring).  The global dispatch
+    is one row of all B*S tokens; the row dispatch one row per batch row,
+    each on its data shard.  Capacity as in ``moe_mlp`` /
+    ``_moe_mlp_rows``."""
+    moe = cfg.moe
+    B, S, d = x.shape
+    Ep, k = moe.n_experts_padded, moe.top_k
+    mesh = x.device_mesh
+    if ctx.moe_row_dispatch:
+        dp, per_row = ctx.dp, S
+        C = int(-(-S * k // Ep) * moe.capacity_factor)
+        C = max(8, (C + 7) // 8 * 8)
+    else:
+        dp, per_row = None, B * S
+        C = max(8, int(-(-B * S * k // Ep) * moe.capacity_factor))
+    full = [Replicate()] * mesh.ndim
+    tok = spec_to_placements((dp, None, None), mesh)      # (B, S, .) on dp
+    xn = ctx.act(rms_norm(x, p["ln"], cfg.norm_eps), dp, None, None)
+    # routing per shard too: DTensor's backward of the router product may
+    # shard its token dim, which no view back to (B, S) can follow
+    logits, probs, gates, idx = per_shard(
+        lambda xl, rl: _route(xl, {"router": rl}, cfg), out=(tok,) * 4,
+        ins=(tok, full), mesh=mesh)(xn, redistribute(p["router"], full))
+
+    # EP shard: each rank fills only its experts' rows; experts that do not
+    # divide the model axis stay whole on every rank, as the ``experts``
+    # rule keeps their weights
+    m = mesh.mesh_dim_names.index(ctx.tp) if ctx.tp is not None else None
+    ep_ax = ctx.tp if m is not None and Ep % mesh.size(m) == 0 else None
+    El = Ep // mesh.size(m) if ep_ax else Ep
+    first = mesh.get_local_rank(m) * El if ep_ax else 0
+    ep = spec_to_placements((dp, ep_ax, None, None), mesh)
+
+    def dispatch(xl, il):
+        xl, il = xl.reshape(-1, per_row, d), il.reshape(-1, per_row, k)
+        bufs, metas = [], []
+        for r in range(xl.shape[0]):
+            e_flat = il[r].reshape(-1)
+            buf, order, _, pos_c, keep = _dispatch(xl[r], e_flat, Ep, C, k, first, El)
+            # token-order routing tables for the combine
+            inv = torch.empty_like(order)
+            inv[order] = torch.arange(order.shape[0], device=xl.device)
+            bufs.append(buf)
+            metas.append((e_flat, pos_c[inv], keep[inv]))
+        return (torch.stack(bufs),) + tuple(torch.stack(m) for m in zip(*metas))
+
+    row2 = spec_to_placements((dp, None), mesh)
+    buf, e_tok, pos_tok, keep_tok = per_shard(
+        dispatch, out=(ep, row2, row2, row2), ins=(tok, tok), mesh=mesh)(xn, idx)
+    w_pl = spec_to_placements((ep_ax, None, None), mesh)
+    names = [name for name in ("w_gate", "w_up", "w_down") if name in p]
+    out_buf = per_shard(
+        lambda b, *ws: _experts(b, dict(zip(names, ws)), cfg), out=(ep,),
+        ins=(ep,) + (w_pl,) * len(names), mesh=mesh,
+    )(buf, *(redistribute(p[name], w_pl) for name in names))
+    partial = tuple(Partial() if ep_ax and i == m else pl for i, pl in enumerate(tok))
+
+    def combine(ob, g, e, pc, kp):
+        y = _combine_local(ob, g.reshape(-1, per_row, k), e, pc, kp, first, per_row, k)
+        return y.reshape(-1, S, d)
+
+    y = per_shard(combine, out=(partial,), ins=(ep, tok, row2, row2, row2),
+                  mesh=mesh)(out_buf, gates.to(out_buf.dtype), e_tok, pos_tok, keep_tok)
+    y = ctx.res(y)
+    aux = _aux(logits, probs, idx, keep_tok, Ep) if with_aux else {}
+    return y, aux

@@ -14,7 +14,11 @@ from dataclasses import dataclass
 from typing import Optional, Tuple, Union
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
+
+from repro_torch.launch.mesh import (local_shape_and_offset, per_shard, redistribute,
+                                     spec_to_placements)
 
 NEG_INF = -1e30
 ATTENTION_IMPLS = ("kernel", "torch")
@@ -23,9 +27,22 @@ SSM_IMPLS = ("kernel", "torch")
 
 @dataclass(frozen=True)
 class ShardCtx:
-    """Execution context.  Of ``repro.models.ops.ShardCtx`` the port keeps
-    only what selects an implementation; sharding waits for the
-    multi-device slice.
+    """Execution context: activation-sharding constraints and kernel
+    implementation selection (``repro.models.ops.ShardCtx``).
+    ``enabled=False`` (one card, or a step on plain tensors) turns every
+    constraint into a no-op.
+
+    ``act(x, *axes)`` is the JAX package's ``with_sharding_constraint``: on
+    a DTensor it redistributes ``x`` to the placements of the spec ``axes``
+    (``launch.mesh.spec_to_placements``) on ``x``'s own mesh; on a plain
+    tensor it does nothing.  ``dp`` (batch axes, None = replicated), ``tp``
+    (the model axis), ``heads_sharded`` / ``ff_sharded`` and the
+    sequence-parallel flags follow the JAX bodies line for line:
+    ``seq_parallel_attn`` shards q (and the attention output) on the
+    SEQUENCE dim over the model axis when the heads do not divide it (k/v
+    replicated; on the kernel route each shard runs the kernel on its rows
+    with their causal offset); ``seq_parallel_residual`` shards the
+    residual carry over the model axis on the seq dim.
 
     ``attention_impl``: "kernel" (prefill attention through
     ``kernels.ops.flash_attention``: the CUDA kernel on a CUDA tensor, its
@@ -38,10 +55,19 @@ class ShardCtx:
     chunk's scores in the backward pass instead of keeping them.
     """
 
+    # the implementation flags first: the port's contexts name them by
+    # position (``ShardCtx("torch", "torch")``)
     attention_impl: str = "kernel"
     ssm_impl: str = "kernel"
     moe_row_dispatch: bool = False
     remat_chunk_attn: bool = False
+    enabled: bool = False
+    dp: Optional[Tuple[str, ...]] = ("data",)     # batch axes
+    tp: Optional[str] = "model"
+    heads_sharded: bool = True
+    ff_sharded: bool = True
+    seq_parallel_attn: bool = False
+    seq_parallel_residual: bool = False
 
     def __post_init__(self):
         if self.attention_impl not in ATTENTION_IMPLS:
@@ -50,8 +76,46 @@ class ShardCtx:
         if self.ssm_impl not in SSM_IMPLS:
             raise ValueError(f"ssm_impl {self.ssm_impl!r} not in {SSM_IMPLS}")
 
+    def act(self, x: torch.Tensor, *axes) -> torch.Tensor:
+        if not self.enabled or not isinstance(x, DTensor):
+            return x
+        return redistribute(x, spec_to_placements(axes, x.device_mesh))
 
-NOSHARD = ShardCtx()
+    def batch(self, x: torch.Tensor) -> torch.Tensor:
+        """Constrain leading axis to the data-parallel axes only."""
+        return self.act(x, self.dp, *([None] * (x.ndim - 1)))
+
+    def res(self, x: torch.Tensor) -> torch.Tensor:
+        """Residual-stream constraint for a (B, S, d) carry.  Seq-shards
+        only full sequences (decode carries have S == 1)."""
+        if self.seq_parallel_residual and self.tp is not None \
+                and x.ndim >= 3 and x.shape[1] % 128 == 0:
+            return self.act(x, self.dp, self.tp, *([None] * (x.ndim - 2)))
+        return self.batch(x)
+
+    @property
+    def heads(self):
+        return self.tp if self.heads_sharded else None
+
+    def gather(self, params):
+        """The FSDP (ZeRO-3) gather at a weight's point of use, as XLA
+        inserts it: every DTensor of ``params`` (a tensor or a dict of
+        them) replicated over every mesh axis but ``tp``, whose shards are
+        kept.  DTensor's backward of this redistribute reduce-scatters the
+        gradient back onto the FSDP axes.  Gathering here, not leaving the
+        choice to DTensor's matmul propagation, keeps a batch-sharded
+        activation from being all-gathered against a weight sharded on the
+        same axis."""
+        if isinstance(params, dict):
+            return {k: self.gather(v) for k, v in params.items()}
+        if not self.enabled or not isinstance(params, DTensor):
+            return params
+        return redistribute(params, tuple(
+            pl if name == self.tp else Replicate()
+            for name, pl in zip(params.device_mesh.mesh_dim_names, params.placements)))
+
+
+NOSHARD = ShardCtx(enabled=False)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -166,8 +230,50 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     if vp > vocab:
         pad_mask = torch.arange(vp, device=logits.device) >= vocab
         logits = logits.masked_fill(pad_mask, NEG_INF)
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    if _vocab_sharded(logits):
+        logz, gold = _sharded_logz_gold(logits, labels)
+    else:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     ce = (logz - gold).mean()
     zloss = torch.square(logz).mean()
     return ce, zloss
+
+
+def _vocab_sharded(logits: torch.Tensor) -> bool:
+    return isinstance(logits, DTensor) and any(
+        isinstance(pl, Shard) and pl.dim % logits.ndim == logits.ndim - 1
+        for pl in logits.placements)
+
+
+def _sharded_logz_gold(logits: DTensor, labels: torch.Tensor):
+    """``logsumexp`` and the gold logit over logits sharded on the vocab:
+    per shard its max (a partial max, reduced), its sum of exp(l - max) and
+    its gold logit where the label falls in its slice (partial sums over
+    the vocab's mesh dims, reduced), the counterpart of XLA's sharded
+    reduction.  DTensor's own rules would gather the (..., Vp) logits."""
+    mesh, pl, last = logits.device_mesh, logits.placements, logits.ndim - 1
+    vocab = [m for m, p in enumerate(pl)
+             if isinstance(p, Shard) and p.dim % logits.ndim == last]
+    rows = tuple(Replicate() if m in vocab else p for m, p in enumerate(pl))
+
+    def partial(red):
+        return tuple(Partial(red) if m in vocab else p for m, p in enumerate(pl))
+
+    if isinstance(labels, DTensor):
+        labels = redistribute(labels, rows)
+    first = local_shape_and_offset(logits.shape, mesh, pl)[1][-1]
+    top = per_shard(lambda x: x.detach().amax(-1), out=(partial("max"),), ins=(pl,),
+                    mesh=mesh)(logits)
+    top = redistribute(top, rows)
+
+    def parts(x, t, y):
+        idx = y.long() - first
+        inside = (idx >= 0) & (idx < x.shape[-1])
+        gold = torch.gather(x, -1, idx.clamp(0, x.shape[-1] - 1)[..., None])[..., 0]
+        return (torch.exp(x - t[..., None]).sum(-1),
+                torch.where(inside, gold, torch.zeros_like(gold)))
+
+    sums, gold = per_shard(parts, out=(partial("sum"), partial("sum")),
+                           ins=(pl, rows, rows), mesh=mesh)(logits, top, labels)
+    return top + torch.log(redistribute(sums, rows)), redistribute(gold, rows)

@@ -1,17 +1,30 @@
-"""Parameter schema, seeded initialisation on one device, and the abstract
-parameters of a dry run.
+"""Logical-axis sharding: one schema drives parameter shapes, their seeded
+initialisation, the abstract parameters of a dry run and their sharding
+specs, so init, optimizer state and placements never drift apart.
 
-A schema is a nested dict of ``ParamSchema`` leaves; it drives parameter
-shapes and init style.  The mesh rules of ``repro.models.sharding`` wait
-for the multi-device slice of the port.
+A schema is a nested dict of ``ParamSchema`` leaves.  Mesh axes:
+``("data", "model")`` single-pod, ``("pod", "data", "model")`` multi-pod.
+Logical parameter axes map to mesh axes by rules derived per architecture
+(divisibility permitting), as in ``repro.models.sharding``.  A spec is a
+tuple with one entry per tensor dim (None, an axis name or a tuple of
+names), the JAX package's ``PartitionSpec`` as a plain tuple;
+``distribute_params`` turns a parameter dict into DTensors with those
+placements (``launch.mesh.spec_to_placements``).
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Sequence, Tuple, Union
 
 import torch
+from torch.distributed.tensor import DTensor, distribute_tensor
+
+from repro_torch.launch.mesh import local_shape_and_offset, spec_to_placements
+
+from .config import ArchConfig
+
+MeshAxes = Union[str, Tuple[str, ...], None]
 
 
 @dataclass(frozen=True)
@@ -26,6 +39,115 @@ class ParamSchema:
     def __post_init__(self):
         if len(self.shape) != len(self.logical):
             raise ValueError(f"shape {self.shape} vs logical axes {self.logical}")
+
+
+@dataclass
+class ShardingRules:
+    """Map from logical axis name to mesh axes (or None = replicate)."""
+
+    rules: Dict[str, MeshAxes]
+
+    def spec_for(self, logical: Sequence[str]) -> Tuple[MeshAxes, ...]:
+        return tuple(self.rules.get(name) for name in logical)
+
+
+def default_rules(
+    cfg: ArchConfig,
+    *,
+    model_axis: str = "model",
+    fsdp_axes: MeshAxes = "data",
+    model_size: int = 16,
+    fsdp_total: int = 16,
+    batch_axes: MeshAxes = ("data",),
+    seq_shard_cache: bool = False,
+) -> ShardingRules:
+    """Derive TP/FSDP rules for an architecture, respecting divisibility
+    (``repro.models.sharding.default_rules``, rule for rule).
+
+    * ``heads_q`` shards over the model axis when n_heads divides;
+    * ``d_ff``/``d_inner``/``experts`` shard over the model axis;
+    * ``d_model`` is the FSDP (ZeRO-3) axis (spanning pod x data when
+      multi-pod);
+    * vocab is padded to 256 so ``embed_vocab`` always shards;
+    * decode caches: ``hd_cache`` shards head_dim over the model axis and
+      optionally ``seq`` over data (B=1 long-context cells).
+    """
+    def fits(n: int, size: int) -> bool:
+        return n % size == 0
+
+    rules: Dict[str, MeshAxes] = {
+        "layers": None,
+        "groups": None,
+        "scan": None,
+        "d_model": fsdp_axes if fits(cfg.d_model, fsdp_total) else None,
+        "embed_vocab": model_axis if fits(cfg.vocab_padded, model_size) else None,
+        "heads_q": model_axis if fits(cfg.n_heads, model_size) else None,
+        "heads_kv": model_axis if fits(cfg.n_kv_heads, model_size) else None,
+        "hd": None,
+        # Decode caches carry both a heads_kv and an hd_cache axis; a mesh
+        # axis may appear once per spec, so hd_cache only shards when the
+        # kv-head axis cannot (GQA with few kv heads).
+        "hd_cache": model_axis
+        if fits(cfg.hd, model_size) and not fits(cfg.n_kv_heads, model_size)
+        else None,
+        "d_ff": model_axis if cfg.d_ff and fits(cfg.d_ff, model_size) else None,
+        "conv": None,
+        "state": None,
+        "dt": None,
+        "scalar": None,
+        "batch": batch_axes,
+        "seq": "data" if seq_shard_cache else None,
+    }
+    if cfg.moe is not None:
+        rules["experts"] = (
+            model_axis if fits(cfg.moe.n_experts_padded, model_size) else None
+        )
+        # When experts shard over model, per-expert d_ff stays unsharded.
+        if rules["experts"] is not None:
+            rules["d_ff"] = None
+    if cfg.ssm is not None:
+        di = cfg.d_inner
+        rules["d_inner"] = model_axis if fits(di, model_size) else None
+        nh = di // cfg.ssm.head_dim
+        rules["ssm_heads"] = model_axis if fits(nh, model_size) else None
+    return ShardingRules(rules)
+
+
+def schema_to_pspecs(schema, rules: ShardingRules):
+    """Map a schema dict to spec tuples, leaf for leaf."""
+    return map_schema(lambda ps: rules.spec_for(ps.logical), schema)
+
+
+def distribute_params(params, specs, mesh):
+    """Each tensor of ``params`` as a DTensor on ``mesh`` with the
+    placements of its spec (the same dict layout).  A tensor is split from
+    the full value every rank holds (``distribute_tensor``); under
+    ``FakeTensorMode`` nothing is allocated."""
+    if isinstance(params, dict):
+        return {k: distribute_params(v, specs[k], mesh) for k, v in params.items()}
+    return distribute_tensor(params, mesh, spec_to_placements(specs, mesh))
+
+
+def abstract_sharded(shape, dtype: torch.dtype, device, mesh, spec):
+    """An empty DTensor of global ``shape`` on ``mesh`` with the placements
+    of ``spec``, whose local tensor has this rank's shape: under
+    ``FakeTensorMode`` nothing is allocated, on real devices only the
+    shard.  The counterpart of a ``ShapeDtypeStruct`` with a sharding."""
+    placements = spec_to_placements(tuple(spec) + (None,) * (len(shape) - len(spec)),
+                                    mesh)
+    local, _ = local_shape_and_offset(shape, mesh, placements)
+    t = torch.empty(local, dtype=dtype, device=device)
+    return DTensor.from_local(t, mesh, placements, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=_contiguous_strides(shape))
+
+
+def _contiguous_strides(shape) -> Tuple[int, ...]:
+    strides, n = [], 1
+    for size in reversed(tuple(shape)):
+        strides.append(n)
+        n *= size
+    return tuple(reversed(strides))
 
 
 def map_schema(fn, schema):

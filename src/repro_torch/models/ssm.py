@@ -9,6 +9,14 @@ tensor, its plain version on a CPU tensor) or through ``ssd_chunked``
 (``ssm_impl="torch"``, the chunked algorithm in plain PyTorch).  The mamba1
 scan has no kernel in the reference either (an ``associative_scan`` in XLA
 code): here it is the same log-depth scan in plain PyTorch.
+
+Sharded (DTensor parameters, ``ctx.enabled``): each block gathers its
+weights over the FSDP axes (``ShardCtx.gather``).  The mamba1 scan is
+channel-local under the ``d_inner`` rule: it runs per shard in
+``local_map`` with x, dt and A sharded on ``d_inner`` and ``Bc``/``Cc``
+replicated over the model axis (their gradient a partial sum over it).
+The mamba2 scan is head-local under the ``ssm_heads`` rule: the kernel's
+DTensor strategy, or DTensor's own rules for ``ssd_chunked``, run it.
 """
 from __future__ import annotations
 
@@ -16,6 +24,9 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
+
+from repro_torch.launch.mesh import per_shard, redistribute, spec_to_placements
 
 from .config import ArchConfig
 from .ops import ShardCtx, rms_norm
@@ -25,7 +36,26 @@ STATE_KEYS = ("conv_x", "conv_B", "conv_C", "ssm")
 
 
 def causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Depthwise causal conv1d.  x: (B, S, C); w: (K, C); b: (C,)."""
+    """Depthwise causal conv1d.  x: (B, S, C); w: (K, C); b: (C,).  On
+    DTensors it runs per shard (rows over the batch axes, channels over
+    the model axis): channel-local, as the JAX rules shard it; DTensor's
+    own rule for the sequence padding is not one to lean on."""
+    if isinstance(x, DTensor):
+        return _causal_conv_sharded(x, w, b)
+    return _causal_conv(x, w, b)
+
+
+def _causal_conv_sharded(x, w, b) -> torch.Tensor:
+    if any(pl == Shard(1) for pl in x.placements):
+        raise ValueError("causal_conv needs the whole sequence on each shard")
+    chan = [pl == Shard(2) for pl in x.placements]
+    w_pl = tuple(Shard(1) if c else Replicate() for c in chan)
+    b_pl = tuple(Shard(0) if c else Replicate() for c in chan)
+    return per_shard(_causal_conv, out=(x.placements,), ins=(x.placements, w_pl, b_pl),
+                     mesh=x.device_mesh)(x, redistribute(w, w_pl), redistribute(b, b_pl))
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     K, S = w.shape[0], x.shape[1]
     xp = F.pad(x, (0, 0, K - 1, 0))
     out = xp[:, 0:S, :] * w[0]
@@ -98,6 +128,43 @@ def mamba1_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return y, h[:, -1].clone()
 
 
+def _ssm_heads_axis(ctx: ShardCtx, x: torch.Tensor, nh: int):
+    """The mesh axis of the SSM heads: the JAX package's ``ssm_heads`` rule
+    (the model axis when ``nh`` divides it, else replicated).  The channels
+    of ``d_inner`` may shard where the heads cannot; they are gathered
+    before they are split into heads."""
+    if not isinstance(x, DTensor) or ctx.tp is None:
+        return ctx.tp
+    mesh = x.device_mesh
+    return ctx.tp if nh % mesh.size(mesh.mesh_dim_names.index(ctx.tp)) == 0 else None
+
+
+def _mamba1_scan_sharded(x, dt, A, Bc, Cc, ctx: ShardCtx):
+    """``mamba1_scan`` per shard: channels (``d_inner``) over ``ctx.tp``,
+    rows over ``ctx.dp``."""
+    mesh = x.device_mesh
+    chan = spec_to_placements((ctx.dp, None, ctx.tp), mesh)
+    rows = spec_to_placements((ctx.dp, None, None), mesh)
+    a_pl = spec_to_placements((ctx.tp, None), mesh)
+    state = spec_to_placements((ctx.dp, ctx.tp, None), mesh)
+    args = (ctx.act(x, ctx.dp, None, ctx.tp), ctx.act(dt, ctx.dp, None, ctx.tp),
+            ctx.act(A, ctx.tp, None), ctx.act(Bc, ctx.dp, None, None),
+            ctx.act(Cc, ctx.dp, None, None))
+    return per_shard(mamba1_scan, out=(chan, state), ins=(chan, chan, a_pl, rows, rows),
+                     mesh=mesh)(*args)
+
+
+def _ssd_chunked_sharded(x, dt, A, Bc, Cc, chunk: int):
+    """``ssd_chunked`` per shard, under the placements the kernel's
+    sharding strategy takes (``kernels.ops.ssd_out_placements``): rows over
+    the batch axes, heads over the model axis."""
+    from repro_torch.kernels.ops import ssd_out_placements
+
+    args = (x, dt, A, Bc, Cc)
+    return per_shard(lambda *a: ssd_chunked(*a, chunk), out=ssd_out_placements(*args),
+                     ins=tuple(t.placements for t in args), mesh=x.device_mesh)(*args)
+
+
 def mamba1_block(p: Dict, x: torch.Tensor, cfg: ArchConfig, ctx: ShardCtx,
                  cache: Optional[Dict] = None,
                  return_state: bool = False) -> Tuple[torch.Tensor, Optional[Dict]]:
@@ -110,31 +177,36 @@ def mamba1_block(p: Dict, x: torch.Tensor, cfg: ArchConfig, ctx: ShardCtx,
     ssm = cfg.ssm
     di, n = cfg.d_inner, ssm.d_state
     dt_rank = max(1, cfg.d_model // 16)
+    p = ctx.gather(p)
     h = rms_norm(x, p["ln"], cfg.norm_eps)
     xz = h @ p["w_in"]                                     # (B,S,2*di)
     xi, z = xz[..., :di], xz[..., di:]
+    xi = ctx.act(xi, ctx.dp, None, ctx.tp)
     A = -torch.exp(p["A_log"].float())                     # (di,n)
 
     if cache is None:
         K = ssm.d_conv
         xc = F.silu(causal_conv(xi, p["conv_w"], p["conv_b"]))
-        xdb = xc @ p["w_xproj"]                            # (B,S,r+2n)
+        # a partial sum over the channels where they shard: reduced whole
+        xdb = ctx.act(xc @ p["w_xproj"], ctx.dp, None, None)   # (B,S,r+2n)
         dt = F.softplus(xdb[..., :dt_rank] @ p["w_dt"] + p["dt_bias"])
         Bc = xdb[..., dt_rank:dt_rank + n].float()
         Cc = xdb[..., dt_rank + n:].float()
-        y, h_fin = mamba1_scan(xc.float(), dt.float(), A, Bc, Cc)
+        scan = _mamba1_scan_sharded if isinstance(xc, DTensor) and ctx.enabled \
+            else lambda *a, ctx: mamba1_scan(*a)
+        y, h_fin = scan(xc.float(), dt.float(), A, Bc, Cc, ctx=ctx)
         y = y.to(x.dtype) + xc * p["D"]
         out = (y * F.silu(z)) @ p["w_out"]
         state = None
         if return_state:
             # copies, not views of the (B, S, 2*di) projection
             state = {"conv": xi[:, -(K - 1):, :].clone(), "ssm": h_fin}
-        return x + out, state
+        return x + ctx.res(out), state
 
     # --- decode step ----------------------------------------------------------
     xc, conv_state = conv_step(xi[:, 0], cache["conv"], p["conv_w"], p["conv_b"])
     xc = F.silu(xc)
-    xdb = xc @ p["w_xproj"]
+    xdb = ctx.act(xc @ p["w_xproj"], ctx.dp, None)
     dt = F.softplus(xdb[..., :dt_rank] @ p["w_dt"] + p["dt_bias"])
     Bc = xdb[..., dt_rank:dt_rank + n].float()
     Cc = xdb[..., dt_rank + n:].float()
@@ -142,7 +214,7 @@ def mamba1_block(p: Dict, x: torch.Tensor, cfg: ArchConfig, ctx: ShardCtx,
     hs = cache["ssm"] * dA + (dt * xc).float()[..., None] * Bc[:, None, :]
     y = torch.einsum("bdn,bn->bd", hs, Cc).to(x.dtype)
     y = y + xc * p["D"]
-    out = (y * F.silu(z[:, 0])) @ p["w_out"]
+    out = ctx.batch((y * F.silu(z[:, 0])) @ p["w_out"])
     cache["conv"].copy_(conv_state)
     cache["ssm"].copy_(hs)
     return x + out[:, None, :], cache
@@ -238,6 +310,7 @@ def mamba2_block(p: Dict, x: torch.Tensor, cfg: ArchConfig, ctx: ShardCtx,
     ssm = cfg.ssm
     di, n, hp = cfg.d_inner, ssm.d_state, ssm.head_dim
     nh = di // hp
+    p = ctx.gather(p)
     h = rms_norm(x, p["ln"], cfg.norm_eps)
     z = h @ p["wz"]
     xi = h @ p["wx"]
@@ -251,6 +324,10 @@ def mamba2_block(p: Dict, x: torch.Tensor, cfg: ArchConfig, ctx: ShardCtx,
         xc = F.silu(causal_conv(xi, p["conv_x_w"], p["conv_x_b"]))
         Bcv = F.silu(causal_conv(Bc, p["conv_B_w"], p["conv_B_b"]))
         Ccv = F.silu(causal_conv(Cc, p["conv_C_w"], p["conv_C_b"]))
+        heads = _ssm_heads_axis(ctx, xc, nh)
+        xc = ctx.act(xc, ctx.dp, None, heads)
+        dt = ctx.act(dt, ctx.dp, None, heads)
+        A = ctx.act(A, heads)
         xh = xc.reshape(*xc.shape[:2], nh, hp)
         args = (xh.float(), dt.float(), A, Bcv.float(), Ccv.float())
         if ctx.ssm_impl == "kernel":
@@ -258,7 +335,8 @@ def mamba2_block(p: Dict, x: torch.Tensor, cfg: ArchConfig, ctx: ShardCtx,
 
             y, h_fin = ssd_scan(*args, chunk=ssm.chunk)
         else:
-            y, h_fin = ssd_chunked(*args, ssm.chunk)
+            scan = _ssd_chunked_sharded if isinstance(xh, DTensor) else ssd_chunked
+            y, h_fin = scan(*args, ssm.chunk)
         y = y.to(x.dtype) + xh * p["D"][:, None]
         y = y.reshape(*xc.shape[:2], di)
         y = rms_norm(y * F.silu(z), p["out_norm"], cfg.norm_eps)
@@ -266,13 +344,14 @@ def mamba2_block(p: Dict, x: torch.Tensor, cfg: ArchConfig, ctx: ShardCtx,
         if return_state:
             state = {"conv_x": xi[:, -(K - 1):, :], "conv_B": Bc[:, -(K - 1):, :],
                      "conv_C": Cc[:, -(K - 1):, :], "ssm": h_fin}
-        return x + y @ p["w_out"], state
+        return x + ctx.res(y @ p["w_out"]), state
 
     # --- decode ---------------------------------------------------------------
     xc, conv_x = conv_step(xi[:, 0], cache["conv_x"], p["conv_x_w"], p["conv_x_b"])
     Bcv, conv_B = conv_step(Bc[:, 0], cache["conv_B"], p["conv_B_w"], p["conv_B_b"])
     Ccv, conv_C = conv_step(Cc[:, 0], cache["conv_C"], p["conv_C_w"], p["conv_C_b"])
     xc, Bcv, Ccv = F.silu(xc), F.silu(Bcv), F.silu(Ccv)
+    xc = ctx.act(xc, ctx.dp, _ssm_heads_axis(ctx, xc, nh))
     xh = xc.reshape(-1, nh, hp).float()
     dt0 = dt[:, 0].float()                                 # (B,nh)
     dA = torch.exp(dt0 * A)                                # (B,nh)
@@ -282,7 +361,7 @@ def mamba2_block(p: Dict, x: torch.Tensor, cfg: ArchConfig, ctx: ShardCtx,
     y = y.to(x.dtype) + xh.to(x.dtype) * p["D"][:, None]
     y = y.reshape(-1, di)
     y = rms_norm(y * F.silu(z[:, 0]), p["out_norm"], cfg.norm_eps)
-    out = y @ p["w_out"]
+    out = ctx.batch(y @ p["w_out"])
     for key, new in (("conv_x", conv_x), ("conv_B", conv_B), ("conv_C", conv_C),
                      ("ssm", hs)):
         cache[key].copy_(new)

@@ -13,6 +13,11 @@ The compression path is the standard error-feedback scheme:
   q = quantize(g + e);  e' = (g + e) - dequant(q);  update uses dequant(q)
 so the quantisation error is re-injected on the next step.
 
+On DTensor leaves (a sharded train step) the update is per shard: the
+moments and error residuals carry their parameters' placements, and the
+two reductions over whole tensors, the global norm and the int8 scale's
+max, are made whole by an explicit all-reduce.
+
 Every division here is of two tensors: ``number / tensor`` multiplies by
 the tensor's reciprocal, and on the card so does ``tensor / number``, which
 rounds twice where the reference divides once.
@@ -24,7 +29,9 @@ from dataclasses import dataclass
 from typing import Any, Dict, NamedTuple, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
+from repro_torch.launch.mesh import per_shard, redistribute
 from repro_torch.tree import leaves, tree_map, unflatten
 
 
@@ -80,8 +87,18 @@ def init(cfg: OptimizerConfig, params: Any) -> OptState:
                     mu=mu, nu=nu, error=err)
 
 
+def _replicated(t: torch.Tensor) -> torch.Tensor:
+    """A reduction over a sharded DTensor (a partial max or sum on the mesh
+    dims its input was split over) made whole on every rank, the
+    all-reduce XLA inserts for the same reduction; a plain tensor as it
+    is."""
+    if not isinstance(t, DTensor):
+        return t
+    return redistribute(t, (Replicate(),) * t.device_mesh.ndim)
+
+
 def _quantize_int8(g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    scale = torch.max(torch.abs(g)) / _f32(127.0, g) + 1e-12
+    scale = _replicated(torch.max(torch.abs(g))) / _f32(127.0, g) + 1e-12
     q = torch.clamp(torch.round(g / scale), -127, 127).to(torch.int8)
     return q, scale
 
@@ -96,7 +113,26 @@ def compress_gradient(g: torch.Tensor, err: torch.Tensor) -> Tuple[torch.Tensor,
 
 
 def global_norm(tree: Any) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in leaves(tree)))
+    """The norm of every leaf together.  On DTensor leaves each rank sums
+    the squares of its shards (partial sums over the mesh dims the leaf is
+    split on, a replicated leaf's sum counted on one rank of the others),
+    and one all-reduce makes the total whole."""
+    flat = leaves(tree)
+    if not isinstance(flat[0], DTensor):
+        return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in flat))
+    mesh = flat[0].device_mesh
+    placements = [x.placements for x in flat]
+    # a leaf replicated on a mesh dim is counted by that dim's rank 0
+    owner = [all(mesh.get_local_rank(m) == 0 for m, pl in enumerate(p)
+                 if not isinstance(pl, Shard)) for p in placements]
+
+    def local_sum(*xs):
+        sums = [torch.sum(torch.square(x.float())) for x in xs]
+        return sum(s if own else torch.zeros_like(s) for s, own in zip(sums, owner))
+
+    total = per_shard(local_sum, out=((Partial(),) * mesh.ndim,),
+                      ins=tuple(placements), mesh=mesh)(*flat)
+    return torch.sqrt(_replicated(total))
 
 
 def _update(cfg: OptimizerConfig, p, g, m, v, scale, lr, b1c, b2c):

@@ -12,6 +12,15 @@ compute-dtype cast sits inside the differentiated function.  The step runs
 the plain attention and SSD paths (``TRAIN_CTX``), as the JAX step runs
 XLA's: the hand-written kernels have no backward.
 
+Sharded: given a ``ctx`` with ``enabled`` and DTensor parameters, optimizer
+state and batch (``launch.plan``'s sharded plans), every step is the SPMD
+program on the mesh.  Micro-batch ``i`` is the ``i``-th slice of each
+rank's local rows, so every micro-batch keeps its data shard (the tokens
+of a micro-batch are not the global batch's contiguous rows, as in the
+JAX step's reshape, but the same tokens enter the summed gradient); each
+gradient leaf is brought to its parameter's placements before it is
+accumulated, as the JAX step's carry keeps the parameters' sharding.
+
 ``make_prefill_step`` / ``make_serve_step`` build the serving entry points:
 the full-sequence cache build and the one-token decode step.  Parameters
 come in the compute dtype already (``models.model.cast_params``, as the
@@ -20,10 +29,14 @@ engine casts them once), or the step casts them when given the cell's
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor import zeros as distributed_zeros
 
+from repro_torch.launch.mesh import plain_tensors_replicated, redistribute
 from repro_torch.models.config import ArchConfig, CellTuning, Family
 from repro_torch.models.model import DECODE, PREFILL, TRAIN, backbone, cast_params, forward, head
 from repro_torch.models.ops import NOSHARD, ShardCtx, softmax_cross_entropy
@@ -81,35 +94,73 @@ def make_train_step(
         if gb % n_micro:
             raise ValueError(f"global batch {gb} does not split into "
                              f"{n_micro} micro-batches")
-        mb_size = gb // n_micro
-        flat = leaves(params)
-        gsum = [torch.zeros(p.shape, dtype=accum_dtype, device=p.device)
-                for p in flat]
-        msum = {k: torch.zeros((), dtype=torch.float32, device=flat[0].device)
-                for k in keys}
-        for i in range(n_micro):
-            mb = {k: v[i * mb_size:(i + 1) * mb_size] for k, v in batch.items()}
-            with torch.enable_grad():
-                req = [p.detach().requires_grad_() for p in flat]
-                loss, metrics = loss_fn(unflatten(params, req), cfg, mb, ctx, tuning)
-                grads = torch.autograd.grad(loss, req)
-            for acc, g in zip(gsum, grads):
-                acc += g.to(accum_dtype)
-            del grads
-            for k in keys:
-                msum[k] += metrics[k].detach()
-        # tensor divisors: on the card ``tensor / number`` multiplies by the
-        # number's reciprocal
-        for acc in gsum:
-            acc /= torch.full((), n_micro, dtype=accum_dtype, device=acc.device)
-        n = torch.full((), n_micro, dtype=torch.float32, device=flat[0].device)
-        metrics = {k: v / n for k, v in msum.items()}
-        params, opt_state, opt_metrics = adamw.apply(
-            opt_cfg, params, unflatten(params, gsum), opt_state)
-        metrics.update(opt_metrics)
-        return params, opt_state, metrics
+        with _dtensor_scope(params):
+            flat = leaves(params)
+            gsum = [_zeros(p, accum_dtype) for p in flat]
+            msum = {k: _scalar_zeros(flat[0]) for k in keys}
+            for i in range(n_micro):
+                mb = {k: _micro_batch(v, i, n_micro) for k, v in batch.items()}
+                with torch.enable_grad():
+                    req = [p.detach().requires_grad_() for p in flat]
+                    loss, metrics = loss_fn(unflatten(params, req), cfg, mb, ctx, tuning)
+                    grads = torch.autograd.grad(loss, req)
+                for acc, g, p in zip(gsum, grads, flat):
+                    if isinstance(g, DTensor):
+                        g = redistribute(g, p.placements)
+                    acc += g.to(accum_dtype)
+                del grads
+                for k in keys:
+                    msum[k] += metrics[k].detach()
+            # tensor divisors: on the card ``tensor / number`` multiplies by the
+            # number's reciprocal
+            for acc in gsum:
+                acc /= torch.full((), n_micro, dtype=accum_dtype, device=acc.device)
+            n = torch.full((), n_micro, dtype=torch.float32, device=flat[0].device)
+            metrics = {k: v / n for k, v in msum.items()}
+            params, opt_state, opt_metrics = adamw.apply(
+                opt_cfg, params, unflatten(params, gsum), opt_state)
+            metrics.update(opt_metrics)
+            return params, opt_state, metrics
 
     return train_step
+
+
+def _dtensor_scope(tree):
+    """``launch.mesh.plain_tensors_replicated`` where ``tree`` holds DTensors: plain tensors
+    made inside a sharded step (divisors, masks) count as replicated."""
+    if isinstance(leaves(tree)[0], DTensor):
+        return plain_tensors_replicated()
+    return contextlib.nullcontext()
+
+
+def _zeros(p: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Zeros of ``p``'s shape in ``dtype``: on ``p``'s mesh with its
+    placements for a DTensor."""
+    if isinstance(p, DTensor):
+        return torch.zeros_like(p, dtype=dtype)
+    return torch.zeros(p.shape, dtype=dtype, device=p.device)
+
+
+def _scalar_zeros(like: torch.Tensor) -> torch.Tensor:
+    """A float32 zero on ``like``'s device, replicated over ``like``'s mesh
+    for a DTensor."""
+    if not isinstance(like, DTensor):
+        return torch.zeros((), dtype=torch.float32, device=like.device)
+    mesh = like.device_mesh
+    return distributed_zeros((), device_mesh=mesh, placements=[Replicate()] * mesh.ndim)
+
+
+def _micro_batch(v: torch.Tensor, i: int, n_micro: int) -> torch.Tensor:
+    """Micro-batch ``i`` of ``n_micro`` of a batch leaf: consecutive global
+    rows for a plain tensor, consecutive rows of each rank's local rows for
+    a DTensor (which keeps its placements)."""
+    if isinstance(v, DTensor):
+        loc = v.to_local()
+        m = loc.shape[0] // n_micro
+        return DTensor.from_local(loc[i * m:(i + 1) * m], v.device_mesh,
+                                  v.placements, run_check=False)
+    m = v.shape[0] // n_micro
+    return v[i * m:(i + 1) * m]
 
 
 def _metric_keys(cfg: ArchConfig) -> List[str]:
@@ -131,11 +182,11 @@ def make_prefill_step(cfg: ArchConfig, ctx: ShardCtx = NOSHARD, *,
     ``tuning.compute_dtype`` inside the step, as the JAX step casts them;
     without it they are used as they come."""
 
-    @torch.inference_mode()
     def prefill_step(params, batch):
-        p = _compute_params(params, tuning)
-        h, cache, _ = backbone(p, cfg, batch, ctx=ctx, mode=PREFILL)
-        return head(p, cfg, h[:, -1]), cache
+        with _no_autograd(params):
+            p = _compute_params(params, tuning)
+            h, cache, _ = backbone(p, cfg, batch, ctx=ctx, mode=PREFILL)
+            return head(p, cfg, h[:, -1], ctx), cache
 
     return prefill_step
 
@@ -148,14 +199,23 @@ def make_serve_step(cfg: ArchConfig, ctx: ShardCtx = NOSHARD, *,
     are updated in place and returned.  ``tuning`` as in
     ``make_prefill_step``."""
 
-    @torch.inference_mode()
     def serve_step(params, cache, tokens):
-        p = _compute_params(params, tuning)
-        h, new_cache, _ = backbone(p, cfg, {"tokens": tokens}, ctx=ctx,
-                                   mode=DECODE, cache=cache)
-        return head(p, cfg, h[:, -1]), new_cache
+        with _no_autograd(params):
+            p = _compute_params(params, tuning)
+            h, new_cache, _ = backbone(p, cfg, {"tokens": tokens}, ctx=ctx,
+                                       mode=DECODE, cache=cache)
+            return head(p, cfg, h[:, -1], ctx), new_cache
 
     return serve_step
+
+
+def _no_autograd(params):
+    """``inference_mode`` for plain tensors; ``no_grad`` for DTensors, whose
+    views (a layer of a stacked weight) cannot be made of inference
+    tensors."""
+    if isinstance(leaves(params)[0], DTensor):
+        return torch.no_grad()
+    return torch.inference_mode()
 
 
 def _compute_params(params, tuning: Optional[CellTuning]):

@@ -63,6 +63,28 @@ def _flash_check(card, B, Sq, Sk, H, KV, hd, causal, dtype, seed):
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
 
 
+@pytest.mark.parametrize("Sq,Sk,q_offset", [(64, 1024, 960), (256, 1024, 512),
+                                            (100, 333, 200), (1000, 1000, 0),
+                                            (37, 130, 0)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_causal_query_slice_on_card(card, Sq, Sk, q_offset, dtype):
+    """A causal slice of query rows against every key (a shard of a
+    sequence-sharded q): the kernel against the plain version and against
+    the same rows of the square product."""
+    g = torch.Generator(device=card).manual_seed(Sq + q_offset)
+    q = torch.randn(1, Sk, 6, 64, generator=g, device=card).to(dtype)
+    k = torch.randn(1, Sk, 2, 64, generator=g, device=card).to(dtype)
+    v = torch.randn(1, Sk, 2, 64, generator=g, device=card).to(dtype)
+    rows = q[:, q_offset:q_offset + Sq]
+    out = flash_attention(rows, k, v, causal=True, q_offset=q_offset)
+    torch.cuda.synchronize()
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    ref = flash_attention_plain(rows, k, v, causal=True, q_offset=q_offset)
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+    square = flash_attention_plain(q, k, v, causal=True)[:, q_offset:q_offset + Sq]
+    torch.testing.assert_close(out.float(), square.float(), atol=tol, rtol=tol)
+
+
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("hd", [8, 16, 32, 64, 80, 96, 128, 192, 256])
 def test_bf16_tensor_core_route_every_head_dim(card, hd, causal):
@@ -827,3 +849,140 @@ def test_dryrun_count_matches_real_step_on_card(card, arch, shape):
     fake_peak = rec["memory"]["peak_bytes_per_device"]
     assert abs(peak - fake_peak) <= max(0.05 * fake_peak, 0.5e9), (peak, fake_peak)
     assert bool(torch.isfinite(logits).all())
+
+
+# -- the mesh ------------------------------------------------------------------
+
+@pytest.fixture
+def nccl_world(card):
+    """A real NCCL process group of one rank on the card, destroyed after."""
+    import socket
+
+    import torch.distributed as dist
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    yield
+    dist.destroy_process_group()
+
+
+def _card_mesh():
+    from repro_torch.launch.mesh import make_mesh_from_shape
+
+    return make_mesh_from_shape((1, 1), ("data", "model"), "cuda")
+
+
+@pytest.mark.parametrize("rule", ["replicated", "batch", "heads"])
+def test_flash_strategy_on_one_card_mesh_is_the_plain_call(card, nccl_world, rule):
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh = _card_mesh()
+    pl = {"replicated": Replicate(), "batch": Shard(0), "heads": Shard(2)}[rule]
+    g = torch.Generator(device=card).manual_seed(5)
+    q, k, v = (torch.randn(2, 256, H, 64, generator=g, device=card).to(torch.bfloat16)
+               for H in (8, 2, 2))
+    want = flash_attention(q, k, v, causal=True)
+    reset_launches()
+    got = flash_attention(*(DTensor.from_local(t, mesh, (pl, pl)) for t in (q, k, v)),
+                          causal=True)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention"] == 1
+    assert got.placements == (pl, pl)
+    assert torch.equal(got.to_local(), want)
+
+
+@pytest.mark.parametrize("rule", ["replicated", "batch", "heads"])
+def test_ssd_strategy_on_one_card_mesh_is_the_plain_call(card, nccl_world, rule):
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh = _card_mesh()
+    R = Replicate()
+    pls = {"replicated": (R,) * 5,
+           "batch": (Shard(0), Shard(0), R, Shard(0), Shard(0)),
+           "heads": (Shard(2), Shard(2), Shard(0), R, R)}[rule]
+    g = torch.Generator(device=card).manual_seed(6)
+    B, S, nh, hp, n = 2, 256, 4, 32, 16
+    x = torch.randn(B, S, nh, hp, generator=g, device=card)
+    dt = torch.rand(B, S, nh, generator=g, device=card) * 0.1
+    A = -torch.rand(nh, generator=g, device=card)
+    Bc = torch.randn(B, S, n, generator=g, device=card)
+    Cc = torch.randn(B, S, n, generator=g, device=card)
+    want = ssd_scan(x, dt, A, Bc, Cc, chunk=64)
+    reset_launches()
+    got = ssd_scan(*(DTensor.from_local(t, mesh, (p, p))
+                     for t, p in zip((x, dt, A, Bc, Cc), pls)), chunk=64)
+    torch.cuda.synchronize()
+    assert LAUNCHES["ssd_scan"] == 1
+    for a, b in zip(got, want):
+        assert torch.equal(a.to_local(), b)
+
+
+MESH_FAMILY_CELLS = [("yi-6b", "prefill_32k"), ("phi3.5-moe-42b-a6.6b", "decode_32k"),
+                     ("falcon-mamba-7b", "long_500k"), ("zamba2-1.2b", "prefill_32k"),
+                     ("whisper-large-v3", "decode_32k")]
+
+
+def _reduced_cell(monkeypatch, arch, shape):
+    """The registry arch shrunk as ``models.testing.reduced`` and the shape
+    cut to 256 positions, as tests/test_torch_sharding.py counts them."""
+    import dataclasses
+
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.models.config import SHAPES
+    from repro_torch.models.testing import reduced
+
+    monkeypatch.setitem(ARCHS, arch, reduced(ARCHS[arch]))
+    monkeypatch.setitem(SHAPES, shape, dataclasses.replace(SHAPES[shape], seq_len=256))
+
+
+@pytest.mark.parametrize("arch,shape", MESH_FAMILY_CELLS)
+def test_multi_pod_count_on_card_fakes_equals_cpu_fakes(card, monkeypatch, arch, shape):
+    from repro_torch.launch.dryrun import run_cell
+
+    _reduced_cell(monkeypatch, arch, shape)
+    on_card = run_cell(arch, shape, multi_pod=True, device="cuda")
+    on_cpu = run_cell(arch, shape, multi_pod=True, device="cpu")
+    assert on_card["status"] == on_cpu["status"] == "ok"
+    for key in ("memory", "collectives"):
+        assert on_card[key] == on_cpu[key], key
+    assert on_card["roofline"] == on_cpu["roofline"]
+
+
+def test_rank0_real_step_meets_its_fake_count_on_card(card, monkeypatch):
+    """Rank 0 of a fake 16x16 world runs zamba2's reduced prefill on real
+    CUDA shards: FlopCounterMode's count of its local operators equals the
+    fake per-device count, and each kernel launches as often as the count
+    calls its operator (``launch.cost.LocalFlopCounter``: DTensor-level
+    calls declined, DTensor's own runs at the global shapes skipped)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.launch import cost
+    from repro_torch.launch.mesh import fake_world, make_production_mesh
+    from repro_torch.launch.plan import build_plan
+    from repro_torch.tree import leaves
+
+    _reduced_cell(monkeypatch, "zamba2-1.2b", "prefill_32k")
+    plan = build_plan("zamba2-1.2b", "prefill_32k", multi_pod=False, device=card)
+    with fake_world(plan.chips):
+        mesh = make_production_mesh(device_type="cuda")
+        with FakeTensorMode():
+            fakes = plan.abstract_args(mesh=mesh)
+        totals, by_op = cost.analyze_by_op(plan.step_fn, *fakes)
+        args = plan.abstract_args(mesh=mesh)
+        g = torch.Generator(device=card).manual_seed(0)
+        for t in leaves(args):
+            local = t.to_local()
+            if local.is_floating_point():
+                local.normal_(0.0, 0.02, generator=g)
+            else:
+                local.random_(0, plan.arch.vocab, generator=g)
+        reset_launches()
+        with cost.LocalFlopCounter() as fc:
+            plan.step_fn(*args)
+        torch.cuda.synchronize()
+    assert fc.get_total_flops() == totals.flops
+    for name in ("flash_attention", "ssd_scan"):
+        assert LAUNCHES[name] == by_op[name][2] > 0, name

@@ -110,9 +110,34 @@ def test_cpu_call_leaves_launch_count_at_zero():
 
 
 def test_causal_needs_equal_lengths():
-    q, k, v = (torch.from_numpy(a) for a in _inputs(1, 16, 32, 2, 2, 8, seed=2))
-    with pytest.raises(ValueError, match="Sq == Sk"):
+    """A causal q is rows [q_offset, q_offset + Sq) of the square product
+    over the keys: rows past the last key, or an offset without a causal
+    mask, raise."""
+    q, k, v = (torch.from_numpy(a) for a in _inputs(1, 32, 16, 2, 2, 8, seed=2))
+    with pytest.raises(ValueError, match="q_offset \\+ Sq <= Sk"):
         flash_attention(q, k, v, causal=True)
+    q, k, v = (torch.from_numpy(a) for a in _inputs(1, 16, 32, 2, 2, 8, seed=2))
+    with pytest.raises(ValueError, match="q_offset \\+ Sq <= Sk"):
+        flash_attention(q, k, v, causal=True, q_offset=17)
+    with pytest.raises(ValueError, match="without a causal mask"):
+        flash_attention(q, k, v, causal=False, q_offset=4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("lo,hi", [(0, 40), (40, 80), (64, 128), (100, 128)])
+def test_causal_query_slice_is_rows_of_the_square_product(lo, hi, dtype):
+    """q rows [lo, hi) with ``q_offset=lo`` against every key: the same rows
+    of the JAX kernel's square causal product (a shard of a
+    sequence-sharded q)."""
+    q, k, v = _inputs(2, 128, 128, 6, 2, 16, seed=lo + hi)
+    td = getattr(torch, dtype)
+    ours = flash_attention(torch.from_numpy(q[:, lo:hi]).to(td),
+                           *(torch.from_numpy(a).to(td) for a in (k, v)),
+                           causal=True, q_offset=lo)
+    ref = jax_flash(*(jnp.asarray(a, getattr(jnp, dtype)) for a in (q, k, v)),
+                    causal=True, interpret=True)
+    np.testing.assert_allclose(ours.float().numpy(),
+                               np.asarray(ref, np.float32)[:, lo:hi], **_tol(dtype))
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():

@@ -114,8 +114,11 @@ def test_train_plan_runs_the_plain_paths_and_serving_the_kernels():
 
 
 def test_plan_refuses_what_one_card_cannot_mean(monkeypatch):
-    with pytest.raises(ValueError, match="multi-device slice"):
-        tplan.build_plan("qwen2-1.5b", "train_4k", multi_pod=True, device="cpu")
+    # a mesh's plan is built, but its arguments need the mesh
+    plan = tplan.build_plan("qwen2-1.5b", "train_4k", multi_pod=True, device="cpu")
+    assert plan.chips == 512
+    with pytest.raises(ValueError, match="need its mesh"):
+        plan.abstract_args()
     with pytest.raises(ValueError, match="unsupported cell"):
         tplan.build_plan("qwen2-1.5b", "long_500k", device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
