@@ -53,6 +53,7 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.launch.mesh import (local_shape_and_offset, per_shard,
                                      plain_tensors_replicated, redistribute)
+from repro_torch.obs.trace import TRACER
 
 from .config import ArchConfig, Family, MLPKind
 from .moe import moe_mlp
@@ -341,12 +342,18 @@ def _unstack(stack, n: int) -> List:
 def _dense_stack(params, h, cfg, ctx, cache, *, mode, with_aux, remat=False):
     """DENSE / VLM / MOE decoder: a loop over the stacked [L, ...] weights.
     Returns (h, cache, aux): for MOE with ``with_aux``, each aux loss's mean
-    over the layers."""
+    over the layers.  While ``TRACER`` is on, each layer records a
+    ``layer.attn`` span around its attention block's enqueue."""
     is_moe = cfg.family == Family.MOE
     pos0 = cache["pos"] if cache is not None else None
 
     def layer(h, lp, kv):
+        on = TRACER.on
+        if on:
+            TRACER.open("layer.attn")
         h, new_kv = attention_block(lp["attn"], h, cfg, ctx, mode=mode, kv_cache=kv)
+        if on:
+            TRACER.close()
         aux = {}
         if is_moe:
             y, aux = moe_mlp(lp["moe"], h, cfg, ctx, with_aux=with_aux)

@@ -43,6 +43,7 @@ import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate
 
 from repro_torch.launch.mesh import per_shard, redistribute, spec_to_placements
+from repro_torch.obs.trace import TRACER
 
 from .config import ArchConfig, MLPKind
 from .ops import ShardCtx, rms_norm
@@ -140,6 +141,10 @@ def moe_mlp(
     ``ctx.moe_row_dispatch`` the per-row capacity of ``_moe_mlp_rows``.
     ``with_aux=False`` skips the aux losses (the serving steps discard
     them) and returns ``{}``.
+
+    While ``TRACER`` is on, every layout records four spans of the host's
+    enqueue: ``moe.route`` (the norm and the router), ``moe.dispatch``,
+    ``moe.experts`` and ``moe.combine``.
     """
     if ctx.enabled and isinstance(x, DTensor):
         return _moe_mlp_sharded(ctx.gather(p), x, cfg, ctx, with_aux=with_aux)
@@ -152,10 +157,20 @@ def moe_mlp(
     C = int(-(-T * k // Ep) * moe.capacity_factor)  # ceil(T*k/Ep)*cf
     C = max(8, C)
 
+    tr = TRACER
+    on = tr.on
+    if on:
+        tr.open("moe.route")
     xf = rms_norm(x, p["ln"], cfg.norm_eps).reshape(T, d)
     logits, probs, gates, idx = _route(xf, p, cfg)
+    if on:
+        tr.then("moe.dispatch")
     buf, order, e_sorted, pos_c, keep = _dispatch(xf, idx.reshape(-1), Ep, C, k)
+    if on:
+        tr.then("moe.experts")
     out_buf = _experts(buf, p, cfg)
+    if on:
+        tr.then("moe.combine")
 
     # combine: the float32 contributions in sorted order, then per token
     # its k slots of that order ascending (= its experts ascending)
@@ -166,6 +181,8 @@ def moe_mlp(
     slot[order] = torch.arange(T * k, device=x.device)
     slots = torch.sort(slot.view(T, k), dim=-1).values
     yf = _serial_sum(contrib[slots]).to(x.dtype)
+    if on:
+        tr.close()
     aux = _aux(logits, probs, idx, keep, Ep) if with_aux else {}
     return yf.reshape(B, S, d), aux
 
@@ -183,8 +200,14 @@ def _moe_mlp_rows(
     C = int(-(-S * k // Ep) * moe.capacity_factor)
     C = max(8, (C + 7) // 8 * 8)
 
+    tr = TRACER
+    on = tr.on
+    if on:
+        tr.open("moe.route")
     xn = rms_norm(x, p["ln"], cfg.norm_eps)                  # (B, S, d)
     logits, probs, gates, idx = _route(xn, p, cfg)           # idx (B, S, k)
+    if on:
+        tr.then("moe.dispatch")
     bufs, metas = [], []
     for b in range(B):
         e_flat = idx[b].reshape(-1)
@@ -194,7 +217,12 @@ def _moe_mlp_rows(
         inv[order] = torch.arange(order.shape[0], device=x.device)
         bufs.append(buf)
         metas.append((e_flat, pos_c[inv], keep[inv]))
-    out_buf = _experts(torch.stack(bufs), p, cfg)            # (B, Ep, C, d)
+    buf = torch.stack(bufs)
+    if on:
+        tr.then("moe.experts")
+    out_buf = _experts(buf, p, cfg)                          # (B, Ep, C, d)
+    if on:
+        tr.then("moe.combine")
     gr = gates.to(out_buf.dtype)
     ys = []
     for b, (e_tok, pos_tok, keep_tok) in enumerate(metas):
@@ -202,10 +230,13 @@ def _moe_mlp_rows(
         contrib = torch.where(keep_tok[:, None],
                               gathered * gr[b].reshape(-1)[:, None], 0.0)
         ys.append(_serial_sum(contrib.view(S, k, d)).to(out_buf.dtype))
+    y = torch.stack(ys)
+    if on:
+        tr.close()
     aux = {}
     if with_aux:
         aux = _aux(logits, probs, idx, torch.stack([m[2] for m in metas]), Ep)
-    return torch.stack(ys), aux
+    return y, aux
 
 
 def _combine_local(out_buf, gates, e_tok, pos_tok, keep_tok, first, S, k):
@@ -243,6 +274,10 @@ def _moe_mlp_sharded(p, x, cfg, ctx, *, with_aux):
         C = max(8, int(-(-B * S * k // Ep) * moe.capacity_factor))
     full = [Replicate()] * mesh.ndim
     tok = spec_to_placements((dp, None, None), mesh)      # (B, S, .) on dp
+    tr = TRACER
+    on = tr.on
+    if on:
+        tr.open("moe.route")
     xn = ctx.act(rms_norm(x, p["ln"], cfg.norm_eps), dp, None, None)
     # routing per shard too: DTensor's backward of the router product may
     # shard its token dim, which no view back to (B, S) can follow
@@ -273,14 +308,20 @@ def _moe_mlp_sharded(p, x, cfg, ctx, *, with_aux):
         return (torch.stack(bufs),) + tuple(torch.stack(m) for m in zip(*metas))
 
     row2 = spec_to_placements((dp, None), mesh)
+    if on:
+        tr.then("moe.dispatch")
     buf, e_tok, pos_tok, keep_tok = per_shard(
         dispatch, out=(ep, row2, row2, row2), ins=(tok, tok), mesh=mesh)(xn, idx)
+    if on:
+        tr.then("moe.experts")
     w_pl = spec_to_placements((ep_ax, None, None), mesh)
     names = [name for name in ("w_gate", "w_up", "w_down") if name in p]
     out_buf = per_shard(
         lambda b, *ws: _experts(b, dict(zip(names, ws)), cfg), out=(ep,),
         ins=(ep,) + (w_pl,) * len(names), mesh=mesh,
     )(buf, *(redistribute(p[name], w_pl) for name in names))
+    if on:
+        tr.then("moe.combine")
     partial = tuple(Partial() if ep_ax and i == m else pl for i, pl in enumerate(tok))
 
     def combine(ob, g, e, pc, kp):
@@ -290,5 +331,7 @@ def _moe_mlp_sharded(p, x, cfg, ctx, *, with_aux):
     y = per_shard(combine, out=(partial,), ins=(ep, tok, row2, row2, row2),
                   mesh=mesh)(out_buf, gates.to(out_buf.dtype), e_tok, pos_tok, keep_tok)
     y = ctx.res(y)
+    if on:
+        tr.close()
     aux = _aux(logits, probs, idx, keep_tok, Ep) if with_aux else {}
     return y, aux

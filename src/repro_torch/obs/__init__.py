@@ -1,20 +1,23 @@
 """Unified observability layer: metrics registry, span tracing, and the
 per-service emissions ledger.
 
-Two tiers:
+Three tiers:
 
 * the process-global :data:`REGISTRY` collects cheap wiring counters
   (planner compile cache, lowering tiers, constraint-engine dirty
   accounting) unconditionally — read it with :func:`metrics_scope` to
   get bleed-free deltas;
+* the process-global :data:`TRACER` holds the serving engine's and the
+  model's spans, off by default: it records while enabled, or while a
+  ``torch.profiler`` trace is active (``obs/trace.py``);
 * an :class:`Observability` bundle, explicitly attached to a
   ``ContinuumRuntime`` (``obs=Observability()``), turns on per-run
   spans, per-tick metrics, and the emissions ledger.  Detached (the
   default), the runtime pays nothing beyond a few ``perf_counter``
   reads per tick.
 
-``profile.profile_window`` traces one window of work on the device (the
-serving profiler and ``chip_smoke.py`` use it).
+``profile.profile_window`` traces one window of work on the device
+(``chip_smoke.py`` uses it).
 
 Quickstart::
 
@@ -50,7 +53,7 @@ from .registry import (
     metrics_scope,
 )
 from .slo import SLO, AlertEvent, SLOEngine
-from .trace import Span, Tracer
+from .trace import TRACER, Span, Tracer
 from .tsdb import SeriesRing, TimeSeriesStore
 from .watch import DetectorState, WatchConfig, Watchtower
 
@@ -70,6 +73,7 @@ __all__ = [
     "SLOEngine",
     "SeriesRing",
     "Span",
+    "TRACER",
     "TimeSeriesStore",
     "Tracer",
     "WatchConfig",

@@ -16,6 +16,28 @@ engine's; the frontend is a stub) and writes its cross K/V lanes
 prefill and the pool.  Idle
 slots decode a stale token at position 0 of their own lane, which the next
 admission overwrites, as in ``repro.serve.engine``.
+
+While ``repro_torch.obs.trace.TRACER`` is on (enabled, or a
+``torch.profiler`` trace active at the tick's start), each tick records
+its spans on the host clock (``time.perf_counter``)::
+
+    serve.tick              queued (queue length at entry), slots; admitted, live
+    ├── serve.admit         one an admission: request_id, slot, prompt_len,
+    │   │                   queued_s (submit() to the prefill's start)
+    │   ├── serve.prefill.enqueue   the prefill step returning, then the slot write
+    │   │   ├── layer.attn, moe.route, moe.dispatch, moe.experts, moe.combine
+    │   │   └── serve.write_slot
+    │   └── serve.prefill.wait      the read of the first token
+    ├── serve.decode.enqueue        the step's inputs and the decode step returning
+    │   └── layer.attn, moe.*       (every layer)
+    ├── serve.decode.wait           the read of the tokens
+    └── serve.emit                  appending the tokens, freeing slots
+
+An enqueue span times the host launching the step, and holds whatever
+waits for the device happen inside it (a synchronizing copy, a full
+launch queue); a wait span is the host blocked on the device for the
+tokens.  ``prefill.*`` cover exactly the interval ``EngineStats.prefill_s``
+adds, ``decode.*`` the one ``decode_s`` adds: they share the clock reads.
 """
 from __future__ import annotations
 
@@ -32,6 +54,7 @@ from repro_torch.models.config import ArchConfig, CellTuning
 from repro_torch.models.model import SEQ_KEYS, cache_schema, cast_params
 from repro_torch.models.ops import ShardCtx
 from repro_torch.models.sharding import map_schema
+from repro_torch.obs.trace import TRACER
 from repro_torch.train.steps import make_prefill_step, make_serve_step
 
 
@@ -45,6 +68,7 @@ class Request:
     # filled by the engine
     generated: List[int] = field(default_factory=list)
     done: bool = False
+    submitted_s: Optional[float] = field(default=None, compare=False)   # perf_counter
 
 
 @dataclass
@@ -116,30 +140,48 @@ class ServeEngine:
     # -- admission -----------------------------------------------------------
 
     def submit(self, req: Request) -> None:
+        req.submitted_s = time.perf_counter()
         self.queue.append(req)
 
     def _free_slots(self) -> List[int]:
         return [i for i, r in enumerate(self.slot_req) if r is None]
 
     def _admit(self) -> None:
+        tr = TRACER
+        on = tr.on
         for slot in self._free_slots():
             if not self.queue:
                 break
             req = self.queue.popleft()
+            if on:
+                tr.open("serve.admit", request_id=req.request_id, slot=slot,
+                        prompt_len=len(req.prompt))
             prompt = torch.as_tensor(np.asarray(req.prompt, np.int64)[None, :],
                                      device=self.device)            # (1, S)
             batch = {"tokens": prompt}
             if self._enc_embeds is not None:
                 batch["enc_embeds"] = self._enc_embeds
             t0 = time.perf_counter()
+            if on:
+                tr.open("serve.prefill.enqueue", t0)
             last_logits, cache1 = self._prefill(self.params, batch)
+            if on:
+                tr.open("serve.write_slot")
             self._write_slot(slot, cache1, prompt.shape[1])
+            if on:
+                tr.close()
+            if on:
+                tr.then("serve.prefill.wait")
             self._next_tok[slot] = int(torch.argmax(last_logits[0, : self.cfg.vocab]))
-            self.stats.prefill_s += time.perf_counter() - t0
+            t2 = time.perf_counter()
+            self.stats.prefill_s += t2 - t0
             self.stats.prefill_tokens += prompt.shape[1]
             self.slot_req[slot] = req
             self.slot_pos[slot] = prompt.shape[1]
             self.stats.admitted += 1
+            if on:
+                tr.close(t2)
+                tr.close(queued_s=t0 - req.submitted_s)
 
     def _write_slot(self, slot: int, cache1, seq_len: int) -> None:
         """Copy a single-sequence (B=1) prefill cache into the pool lane:
@@ -160,19 +202,36 @@ class ServeEngine:
     def tick(self) -> None:
         """Admit waiting requests, then decode one token for all occupied
         slots (idle slots decode a pad token into a scratch lane)."""
+        tr = TRACER
+        on = tr.poll()
+        if on:
+            tr.open("serve.tick", queued=len(self.queue), slots=self.slots)
+        admitted0 = self.stats.admitted
         self._admit()
         occupied = [i for i, r in enumerate(self.slot_req) if r is not None]
-        if not occupied:
-            self.stats.ticks += 1
-            return
+        if occupied:
+            self._step(occupied, on)
+        self.stats.ticks += 1
+        if on:
+            tr.close(admitted=self.stats.admitted - admitted0, live=len(occupied))
+            tr.settle()
+
+    def _step(self, occupied: List[int], on: bool) -> None:
+        """One decode step for every slot, then the occupied slots' tokens."""
+        tr = TRACER
         t0 = time.perf_counter()
+        if on:
+            tr.open("serve.decode.enqueue", t0)
         cache = dict(self.cache, pos=torch.as_tensor(self.slot_pos, device=self.device))
         toks = torch.as_tensor(self._next_tok[:, None], device=self.device)
         logits, _ = self._decode(self.params, cache, toks)   # updated in place
+        if on:
+            tr.then("serve.decode.wait")
         nxt = torch.argmax(logits[:, : self.cfg.vocab], dim=-1).cpu().numpy()
-        self.stats.decode_s += time.perf_counter() - t0
-
-        self.stats.ticks += 1
+        t2 = time.perf_counter()
+        self.stats.decode_s += t2 - t0
+        if on:
+            tr.then("serve.emit", t2)
         for i in occupied:
             req = self.slot_req[i]
             tok = int(self._next_tok[i])
@@ -187,6 +246,8 @@ class ServeEngine:
                 self.stats.finished += 1
                 self.slot_req[i] = None
                 self.slot_pos[i] = 0
+        if on:
+            tr.close()
 
     def run_until_drained(self, max_ticks: int = 10_000) -> EngineStats:
         for _ in range(max_ticks):
