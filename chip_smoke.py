@@ -21,6 +21,21 @@ Phases, each printing one JSON line:
                version's, SDPA's (a yardstick only) and the least time the
                card could take (bound_ms).  Each row names the kernel route
                its dtype takes: tensor_core_bf16 or cuda_core_f32.
+  3b. decode — the decode attention kernel against its plain version
+               (``attention_reference`` with ``kv_len``) on the card:
+               granite-moe-3b-a800m's 24/8 heads at hd 64 at the
+               benchmark's chat pool (256 slots of 2048) and long-prompt
+               pool (48 of 4016, 30 live), each slot at a seeded live
+               length drawn from the cell's traffic mix; qwen2's 12/2 at
+               hd 128, whisper's 20/20 (self, and cross over the 1536
+               frames with no kv_len), the reduced twins' hd 16, float32
+               and bfloat16, lengths 1 and Sk among them.  float32 within
+               1e-5 (the same float32 arithmetic in another order of sums),
+               bfloat16 within that plus one bf16 ulp of the larger value
+               (each side rounds its float32 result once).  The two pool
+               rows are timed with the plain version, SDPA under the same
+               length mask (a yardstick only) and the least time of their
+               live bytes.
   4. ssd     — the SSD scan kernel against its plain version at zamba2's
                prefill shape, ragged, and the repo's test shapes, in float32
                and bfloat16, with its time, the plain version's and its
@@ -287,12 +302,20 @@ FLASH = {
     "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
     "replaces": "src/repro/kernels/flash_attention.py:129",
 }
+DECODE = {
+    "name": "decode_attention",
+    "route": "cuda",
+    "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+    "replaces": None,
+}
 SSD = {
     "name": "ssd_scan",
     "route": "cuda",
     "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
     "replaces": "src/repro/kernels/ssd_scan.py:122",
 }
+# LAUNCHES where no kernel ran
+NO_LAUNCHES = {"flash_attention": 0, "decode_attention": 0, "ssd_scan": 0}
 # the shape lists of tests/test_kernels.py: (B, S, H, KV, hd) and
 # (B, S, nh, hp, n, chunk)
 ATTN_SHAPES = [(1, 128, 4, 4, 32), (2, 256, 8, 2, 64), (1, 192, 6, 1, 16),
@@ -531,6 +554,124 @@ def phase_kernel(peaks) -> tuple:
     return main_entry, at
 
 
+def _live_lengths(rng, pool, live, max_len, prompt, output):
+    """``pool`` slots' kv_len: ``live`` of them at a prompt drawn from the
+    mix (lognormal (median, sigma, lo, hi) or uniform (lo, hi)) plus a
+    uniform share of an output drawn likewise, the rest free (1)."""
+    import numpy as np
+
+    def draw(spec, n):
+        if spec[0] == "lognormal":
+            _, med, sig, lo, hi = spec
+            return np.clip(np.round(med * np.exp(sig * rng.standard_normal(n))), lo, hi)
+        return rng.integers(spec[1], spec[2] + 1, size=n)
+
+    lens = np.ones(pool, np.int64)
+    pos = draw(prompt, live) + np.floor(rng.random(live) * draw(output, live))
+    lens[:live] = np.minimum(pos + 1, max_len)
+    return lens[rng.permutation(pool)]
+
+
+# (case, B, Sk, H, KV, hd, dtype, kv_len): the two benchmark pools (lengths
+# drawn from their cells' traffic) are timed
+DECODE_CASES = [
+    ("chat", 256, 2048, 24, 8, 64, "bfloat16",
+     ("live", 256, ("lognormal", 256, 0.6, 64, 1024), ("lognormal", 384, 0.5, 128, 1024))),
+    ("long_prompt", 48, 4016, 24, 8, 64, "bfloat16",
+     ("live", 30, ("lognormal", 2048, 0.5, 512, 3968), ("uniform", 8, 48))),
+    ("chat", 256, 2048, 24, 8, 64, "float32", "ragged"),
+    ("qwen2", 4, 1088, 12, 2, 128, "bfloat16", "ragged"),
+    ("qwen2", 4, 1088, 12, 2, 128, "float32", "ragged"),
+    ("whisper_self", 4, 448, 20, 20, 64, "bfloat16", "ragged"),
+    ("whisper_cross", 4, 1536, 20, 20, 64, "bfloat16", None),
+    ("whisper_cross", 4, 1536, 20, 20, 64, "float32", None),
+    ("zamba2", 4, 1088, 32, 32, 64, "bfloat16", "ragged"),
+    ("twin", 3, 48, 4, 2, 16, "float32", "ragged"),
+    ("twin", 3, 48, 4, 4, 16, "float32", "ragged"),
+]
+
+
+def bf16_ulp(x):
+    """The spacing of bfloat16 values at |x| (8 significant bits)."""
+    import torch
+
+    a = x.abs().float().clamp_min(torch.finfo(torch.bfloat16).tiny)
+    return torch.exp2(torch.floor(torch.log2(a)) - 7)
+
+
+def decode_close(out, ref) -> tuple:
+    """(max abs error, ok): float32 within 1e-5 absolute and relative;
+    bfloat16 within that plus one ulp of the larger of the two values."""
+    import torch
+
+    diff = (out.float() - ref.float()).abs()
+    lim = 1e-5 + 1e-5 * ref.float().abs()
+    if out.dtype == torch.bfloat16:
+        lim = lim + bf16_ulp(torch.maximum(out.float().abs(), ref.float().abs()))
+    return float(diff.max()), bool((diff <= lim).all()) and bool(torch.isfinite(out).all())
+
+
+def phase_decode(peaks) -> dict:
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.decode_attention import (
+        decode_attention_cuda,
+        decode_attention_plain,
+    )
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rng = np.random.default_rng(0)
+    bf16_rate, f32_rate, mem_rate = peaks
+    timed = {}
+    for what, B, Sk, H, KV, hd, dt, how in DECODE_CASES:
+        dtype = getattr(torch, dt)
+        q = torch.randn(B, 1, H, hd, generator=gen, device=dev).to(dtype)
+        k = torch.randn(B, Sk, KV, hd, generator=gen, device=dev).to(dtype)
+        v = torch.randn(B, Sk, KV, hd, generator=gen, device=dev).to(dtype)
+        if how is None:
+            lens = np.full(B, Sk)
+            kv_len = None
+        else:
+            if how == "ragged":            # 1 and Sk among them
+                lens = rng.integers(1, Sk + 1, size=B)
+                lens[0], lens[-1] = 1, Sk
+            else:
+                lens = _live_lengths(rng, B, how[1], Sk, how[2], how[3])
+            kv_len = torch.as_tensor(lens, dtype=torch.int32, device=dev)
+        out = decode_attention_cuda(q, k, v, kv_len)
+        torch.cuda.synchronize()
+        ref = decode_attention_plain(q, k, v, kv_len)
+        err, ok = decode_close(out, ref)
+        row = dict(case=what, shape=[B, 1, Sk, H, KV, hd], dtype=dt,
+                   kernel_route="flash_decode_f32_math", kv_len_mean=float(lens.mean()),
+                   kv_len_min=int(lens.min()), kv_len_max=int(lens.max()),
+                   max_abs_err=err, ok=ok)
+        if how is not None and how[0] == "live":
+            tokens = int(lens.sum())
+            es = 2 if dtype == torch.bfloat16 else 4
+            t_ops = 4.0 * H * hd * tokens / (bf16_rate if es == 2 else f32_rate)
+            t_mem = es * hd * (2 * KV * tokens + 2 * H * B) / mem_rate
+            row["live_tokens"] = tokens
+            row["bound_ms"] = 1e3 * max(t_ops, t_mem)
+            row["bound_by"] = "operations" if t_ops >= t_mem else "bytes"
+            row["ms"] = cuda_ms(lambda: decode_attention_cuda(q, k, v, kv_len))
+            row["eager_ms"] = eager_ms(lambda: decode_attention_cuda(q, k, v, kv_len))
+            row["plain_ms"] = cuda_ms(lambda: decode_attention_plain(q, k, v, kv_len))
+            mask = (torch.arange(Sk, device=dev)[None, :] < kv_len[:, None])[:, None, None]
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            row["library_ms"] = cuda_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask, enable_gqa=True))
+            row["roofline_pct"] = 100.0 * row["bound_ms"] / row["ms"]
+            timed[what] = row
+        emit("decode", **row)
+        if not ok:
+            raise RuntimeError(f"decode_attention disagrees with its plain version: {row}")
+    return timed
+
+
 def phase_ssd(peaks) -> dict:
     import math
 
@@ -648,20 +789,26 @@ def _weights(cfg, device="cuda"):
     return params
 
 
-def _expected_launches(cfg, n_req: int) -> dict:
-    """Launches of each kernel for ``n_req`` admitted requests: one per
-    attention layer (or shared-block application; three per whisper decoder
-    layer: encoder, decoder self, cross) and per mamba2 layer."""
+def _expected_launches(cfg, n_req: int, steps: int) -> dict:
+    """Launches of each kernel for ``n_req`` admitted requests and ``steps``
+    decode steps: flash once per attention layer of a prefill (or
+    shared-block application; three per whisper decoder layer: encoder,
+    decoder self, cross), decode attention once per attention layer of a
+    decode step (two per whisper decoder layer: self, cross), ssd_scan once
+    per mamba2 layer of a prefill."""
     from repro_torch.models.config import Family
 
+    L = cfg.n_layers
     if cfg.family in (Family.ENC_DEC, Family.AUDIO):
-        return {"flash_attention": n_req * 3 * cfg.n_layers, "ssd_scan": 0}
+        return {"flash_attention": n_req * 3 * L, "decode_attention": steps * 2 * L,
+                "ssd_scan": 0}
     if cfg.family == Family.HYBRID:
-        return {"flash_attention": n_req * (cfg.n_layers // cfg.shared_attn_period),
-                "ssd_scan": n_req * cfg.n_layers}
+        apps = L // cfg.shared_attn_period
+        return {"flash_attention": n_req * apps, "decode_attention": steps * apps,
+                "ssd_scan": n_req * L}
     if cfg.family == Family.SSM:          # mamba1: no kernel on its path
-        return {"flash_attention": 0, "ssd_scan": 0}
-    return {"flash_attention": n_req * cfg.n_layers, "ssd_scan": 0}
+        return {"flash_attention": 0, "decode_attention": 0, "ssd_scan": 0}
+    return {"flash_attention": n_req * L, "decode_attention": steps * L, "ssd_scan": 0}
 
 
 # (prompt tokens, new tokens, the pool's max_len) of each serve phase
@@ -702,7 +849,7 @@ def phase_serve(cfg) -> dict:
     wall = time.perf_counter() - t0
     launches = dict(LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
-    expected = _expected_launches(cfg, n_req)
+    expected = _expected_launches(cfg, n_req, stats.ticks)
 
     toks = [t for r in reqs for t in r.generated]
     checks = {
@@ -884,8 +1031,7 @@ def phase_decode_check(cfg, prompt_len=512) -> None:
     err = float((dec[:, -1] - full[:, -1]).abs().max())
     checks = {"decode_within_2e-3": err <= 2e-3,
               "finite": bool(torch.isfinite(full).all() and torch.isfinite(dec).all()),
-              "no_kernel_launched": dict(LAUNCHES) == {"flash_attention": 0,
-                                                       "ssd_scan": 0}}
+              "no_kernel_launched": dict(LAUNCHES) == NO_LAUNCHES}
     emit("decode_check", arch=cfg.name, dtype="float32", prompt_len=prompt_len,
          decode_vs_full_max_abs_err=err, tol=2e-3,
          logits_max_abs=float(full[:, -1].abs().max()),
@@ -1055,7 +1201,7 @@ def _train_steps(case, cfg, opt_cfg, step_fn, dcfg, params, n_steps, dtype,
         "losses_finite": all(math.isfinite(s["loss"]) and math.isfinite(s["grad_norm"])
                              for s in steps),
         "every_leaf_moved": all(moved),
-        "no_kernel_launched": launches == {"flash_attention": 0, "ssd_scan": 0}}
+        "no_kernel_launched": launches == NO_LAUNCHES}
     if profile_it:
         batch = to_device(batch_for_step(dcfg, n_steps), TRAIN_CARD)
         out = []
@@ -1093,8 +1239,7 @@ def _train_kernel_route(case, cfg, params, batch, expected) -> dict:
     checks = {"losses_finite": all(math.isfinite(v) for v in losses.values()),
               "within_1e-4": rel <= 1e-4,
               "kernel_launches": launches["kernel"] == expected,
-              "torch_launches_none": launches["torch"] == {"flash_attention": 0,
-                                                           "ssd_scan": 0}}
+              "torch_launches_none": launches["torch"] == NO_LAUNCHES}
     return {"case": case, "arch": cfg.name, "dtype": "float32",
             "tokens": list(batch["tokens"].shape), "losses": losses, "rel_diff": rel,
             "tol": 1e-4, "launches": launches, "expected_launches": expected,
@@ -1285,7 +1430,7 @@ def phase_train(peaks) -> dict:
     _emit_train(_train_kernel_route(
         "c_kernel_route", cfg, _weights(cfg, TRAIN_CARD),
         to_device(batch_for_step(dcfg, 0), TRAIN_CARD),
-        {"flash_attention": cfg.n_layers, "ssd_scan": 0}))
+        {"flash_attention": cfg.n_layers, "decode_attention": 0, "ssd_scan": 0}))
     torch.cuda.empty_cache()
     a = _train_steps("a_float32", cfg, opt_cfg, step_fn, dcfg, _weights(cfg, TRAIN_CARD),
                      TRAIN_STEPS, "float32", peaks, profile_it=True)
@@ -1312,14 +1457,13 @@ def phase_train(peaks) -> dict:
         "c_kernel_route", zcfg, _weights(zcfg, TRAIN_CARD),
         to_device(batch_for_step(zdata, 0), TRAIN_CARD),
         {"flash_attention": zcfg.n_layers // zcfg.shared_attn_period,
-         "ssd_scan": zcfg.n_layers}))
+         "decode_attention": 0, "ssd_scan": zcfg.n_layers}))
     for name in sorted(ARCHS):
         reset_launches()
         row = _twin_case(name)
         count(dict(LAUNCHES))
         row["launches"] = dict(LAUNCHES)
-        row["checks"]["no_kernel_launched"] = row["launches"] == {"flash_attention": 0,
-                                                                  "ssd_scan": 0}
+        row["checks"]["no_kernel_launched"] = row["launches"] == NO_LAUNCHES
         _emit_train(row)
     _emit_train(_train_restart())
     return total
@@ -2691,7 +2835,10 @@ def _mesh_nccl() -> dict:
     prefill and a decode step through the kernel route, against the
     unsharded port on the same weights: logits equal bit for bit, the same
     flash launches, and the host cost of DTensor's dispatch (wall ms of
-    each step, sharded beside plain)."""
+    each step, sharded beside plain).  The sharded context shards the
+    cache's head dim, where the decode step's cache attention keeps the
+    plain route (``models/model.py::_attend_cache``), so the unsharded
+    decode step it is held to runs that route too."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -2743,7 +2890,8 @@ def _mesh_nccl() -> dict:
                                        ("sharded", ctx, dparams, shard_batch)):
             kw = {} if step_ctx is None else {"ctx": step_ctx}
             prefill = steps.make_prefill_step(cfg, **kw)
-            serve = steps.make_serve_step(cfg, **kw)
+            serve = steps.make_serve_step(cfg, ctx=step_ctx or ShardCtx("torch", "kernel"))
+
             def full(t):
                 return t.full_tensor() if isinstance(t, DTensor) else t
 
@@ -3065,6 +3213,7 @@ def _main_phases(seconds, timed, smi, name, peaks) -> int:
     from repro_torch.configs.registry import get_arch
 
     flash, flash_at = timed("kernel", phase_kernel, peaks)
+    decode = timed("decode", phase_decode, peaks)
     ssd = timed("ssd", phase_ssd, peaks)
 
     launches = {}
@@ -3093,8 +3242,10 @@ def _main_phases(seconds, timed, smi, name, peaks) -> int:
     emit("seconds", **seconds)
 
     entries = []
-    for spec, row, also in ((FLASH, flash, flash_at), (SSD, ssd, {})):
-        per_path = {arch: n[spec["name"]] for arch, n in launches.items()}
+    decode_at = {"at_long_prompt": decode["long_prompt"]}
+    for spec, row, also in ((FLASH, flash, flash_at), (DECODE, decode["chat"], decode_at),
+                            (SSD, ssd, {})):
+        per_path = {arch: n.get(spec["name"], 0) for arch, n in launches.items()}
         entry = dict(spec, launches=sum(per_path.values()),
                      launches_per_path=per_path, max_abs_err=row["max_abs_err"],
                      ms=row["ms"], plain_ms=row["plain_ms"],

@@ -1,28 +1,34 @@
 """Model-layout wrappers of the port's kernels.
 
 Each kernel is a ``torch.library`` operator (``repro_torch::flash_attention``,
-``repro_torch::ssd_scan``): its CUDA implementation is the hand-written
-kernel, which launches or raises; its CPU implementation is the kernel's
-plain PyTorch version.  There is no other route: nothing here falls back
-from the kernel to the plain version.  ``LAUNCHES`` counts kernel launches,
-in the CUDA implementations and nowhere else.  One ``ssd_scan`` count
-stands for one call of the scan, which launches its five passes (cumsum,
-C.B^T, chunk states, state passing, chunk output) as five CUDA kernels on
-the current stream; one ``flash_attention`` count is one kernel launch.
+``repro_torch::decode_attention``, ``repro_torch::ssd_scan``): its CUDA
+implementation is the hand-written kernel, which launches or raises; its
+CPU implementation is the kernel's plain PyTorch version.  There is no
+other route: nothing here falls back from the kernel to the plain version.
+``LAUNCHES`` counts kernel launches, in the CUDA implementations and
+nowhere else.  One ``ssd_scan`` count stands for one call of the scan,
+which launches its five passes (cumsum, C.B^T, chunk states, state
+passing, chunk output) as five CUDA kernels on the current stream; one
+``decode_attention`` count for one call, which launches two (the chunks'
+partial softmax, then their combination); one ``flash_attention`` count is
+one kernel launch.
 
 Each operator also has a fake implementation (output shapes and dtypes)
 and a FLOP formula, so ``launch.cost`` counts a step that goes through the
 kernels under ``FakeTensorMode`` without launching anything.  The formula
 is the work the torch route does for the same call (``attention_chunked``
-and the JAX package's XLA attention compute the masked full score matrix;
+and the JAX package's XLA attention compute the masked full score matrix,
+``attention_reference`` the decode scores over the whole cache lane;
 ``models.ssm.ssd_chunked`` the chunked SSD), so a roofline reads the same
 work whichever route computes it.
 
 On DTensors each operator runs per shard through the sharding strategy
 registered here (``register_sharding``): flash attention with the batch
 sharded, or the heads of q, k and v sharded together (each shard keeps its
-GQA groups whole); the SSD scan with the batch sharded, or its heads (x,
-dt, A and both outputs) with ``Bc``/``Cc`` replicated.  Every rule keeps
+GQA groups whole); decode attention with the batch sharded (q, k, v and a
+(B,) ``kv_len``; a 0-d one replicated), or everything replicated; the SSD
+scan with the batch sharded, or its heads (x, dt, A and both outputs) with
+``Bc``/``Cc`` replicated.  Every rule keeps
 the operator's own semantics on the local shards, so a shard's call is the
 kernel (or its plain version) on local tensors, and its fake
 implementation and FLOP formula count the local shapes.  A DTensor call
@@ -37,17 +43,18 @@ ssm_impl="torch")`` (``train.steps.TRAIN_CTX``).
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.distributed.tensor.experimental import register_sharding
 from torch.utils.flop_counter import register_flop_formula
 
+from .decode_attention import decode_attention_cuda, decode_attention_plain
 from .flash_attention import flash_attention_cuda, flash_attention_plain
 from .ssd_scan import ssd_scan_cuda, ssd_scan_plain
 
-LAUNCHES: Dict[str, int] = {"flash_attention": 0, "ssd_scan": 0}
+LAUNCHES: Dict[str, int] = {"flash_attention": 0, "decode_attention": 0, "ssd_scan": 0}
 
 
 def reset_launches() -> None:
@@ -138,6 +145,71 @@ def flash_attention(
     _on_cpu_or_cuda("flash_attention", q)
     _rule_of("flash_attention", _FLASH_RULES, q, k, v)
     return _flash_op(q, k, v, causal, q_offset)
+
+
+# -- decode attention ---------------------------------------------------------
+
+@torch.library.custom_op("repro_torch::decode_attention", mutates_args=(),
+                         device_types="cpu")
+def _decode_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               kv_len: Optional[torch.Tensor]) -> torch.Tensor:
+    return decode_attention_plain(q, k, v, kv_len).contiguous()
+
+
+@_decode_op.register_kernel("cuda")
+def _decode_cuda(q, k, v, kv_len):
+    out = decode_attention_cuda(q, k, v, kv_len)
+    LAUNCHES["decode_attention"] += 1
+    return out
+
+
+@_decode_op.register_fake
+def _decode_fake(q, k, v, kv_len):
+    return q.new_empty(q.shape)
+
+
+@register_flop_formula(torch.ops.repro_torch.decode_attention)
+def _decode_flops(q_shape, k_shape, v_shape, kv_len_shape, *args,
+                  out_shape=None, **kwargs) -> int:
+    """QK^T and PV over the whole lane, as ``attention_reference`` computes
+    them (the kernel reads only the live prefix; the count is the plain
+    route's, so the dry run counts the same work on either route)."""
+    B, Sq, H, hd = q_shape
+    return 4 * B * H * Sq * k_shape[1] * hd
+
+
+def _decode_rules(kv_len):
+    """Per mesh dim (q, k, v, kv_len): all replicated, or the batch sharded
+    (a 0-d ``kv_len`` replicated); no ``kv_len``, no placement for it."""
+    if kv_len is None:
+        return ((Replicate(),) * 3 + (None,), (Shard(0),) * 3 + (None,))
+    batch = Replicate() if kv_len.ndim == 0 else Shard(0)
+    return ((Replicate(),) * 4, (Shard(0),) * 3 + (batch,))
+
+
+@register_sharding(torch.ops.repro_torch.decode_attention.default)
+def _decode_sharding(q, k, v, kv_len):
+    """Per mesh dim: all replicated, or the batch sharded (out like q)."""
+    return [([rule[0]], list(rule)) for rule in _decode_rules(kv_len)]
+
+
+def decode_attention(
+    q: torch.Tensor,                          # (B, 1, H, hd)
+    k: torch.Tensor,                          # (B, Sk, KV, hd)
+    v: torch.Tensor,                          # (B, Sk, KV, hd)
+    kv_len: Optional[torch.Tensor] = None,    # None, 0-d or (B,): keys live
+) -> torch.Tensor:
+    """One query row a slot against the first ``kv_len`` keys of its cache
+    lane (all Sk where None), non-causal; returns (B, 1, H, hd) in q's
+    dtype.  Each length must lie in [1, Sk]."""
+    _forward_only("decode_attention", q, k, v)
+    _on_cpu_or_cuda("decode_attention", q)
+    rules = _decode_rules(kv_len)
+    if kv_len is None:
+        _rule_of("decode_attention", tuple(r[:3] for r in rules), q, k, v)
+    else:
+        _rule_of("decode_attention", rules, q, k, v, kv_len)
+    return _decode_op(q, k, v, kv_len)
 
 
 # -- SSD scan -----------------------------------------------------------------

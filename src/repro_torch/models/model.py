@@ -167,12 +167,28 @@ def _attend_cache(q, kc, vc, ctx: ShardCtx, kv_len=None) -> torch.Tensor:
     """Decode attention over a cache (self or cross), the JAX package's
     head-dim-sharded constraint on the cache: q follows k onto the head
     dim (its heads whole), and the output goes back to the heads' layout
-    for the output projection."""
+    for the output projection.
+
+    On the kernel route a cache whose head dim is not sharded (plain
+    tensors, as on one card) goes through ``kernels.ops.decode_attention``,
+    which reads only each slot's first ``kv_len`` keys.  A head-dim shard
+    holds part of every dot product, which no per-shard kernel can finish,
+    so a sharded cache keeps ``attention_reference``."""
     kc = ctx.act(kc, ctx.dp, None, None, ctx.tp)
     vc = ctx.act(vc, ctx.dp, None, None, ctx.tp)
     q = ctx.act(q, ctx.dp, None, None, ctx.tp)
-    out = attention_reference(q, kc, vc, causal=False, kv_len=kv_len)
+    if ctx.attention_impl == "kernel" and not _head_dim_sharded(kc):
+        from repro_torch.kernels.ops import decode_attention
+
+        out = decode_attention(q, kc, vc, kv_len)
+    else:
+        out = attention_reference(q, kc, vc, causal=False, kv_len=kv_len)
     return ctx.act(out, ctx.dp, None, ctx.heads, None)
+
+
+def _head_dim_sharded(t: torch.Tensor) -> bool:
+    return isinstance(t, DTensor) and any(
+        isinstance(p, Shard) and p.dim == t.ndim - 1 for p in t.placements)
 
 
 def _attention_core(q, k, v, causal, ctx):

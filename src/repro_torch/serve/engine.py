@@ -21,7 +21,9 @@ While ``repro_torch.obs.trace.TRACER`` is on (enabled, or a
 ``torch.profiler`` trace active at the tick's start), each tick records
 its spans on the host clock (``time.perf_counter``)::
 
-    serve.tick              queued (queue length at entry), slots; admitted, live
+    serve.tick              queued (queue length at entry), slots; admitted, live,
+    │                       kv_tokens (the keys the decode step attends to:
+    │                       the sum over every slot of pos + 1; 0 without a step)
     ├── serve.admit         one an admission: request_id, slot, prompt_len,
     │   │                   queued_s (submit() to the prefill's start)
     │   ├── serve.prefill.enqueue   the prefill step returning, then the slot write
@@ -209,11 +211,13 @@ class ServeEngine:
         admitted0 = self.stats.admitted
         self._admit()
         occupied = [i for i, r in enumerate(self.slot_req) if r is not None]
+        kv_tokens = int(self.slot_pos.sum()) + self.slots if on and occupied else 0
         if occupied:
             self._step(occupied, on)
         self.stats.ticks += 1
         if on:
-            tr.close(admitted=self.stats.admitted - admitted0, live=len(occupied))
+            tr.close(admitted=self.stats.admitted - admitted0, live=len(occupied),
+                     kv_tokens=kv_tokens)
             tr.settle()
 
     def _step(self, occupied: List[int], on: bool) -> None:

@@ -14,7 +14,14 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import LAUNCHES, flash_attention, reset_launches, ssd_scan
+from repro_torch.kernels import (
+    LAUNCHES,
+    decode_attention,
+    flash_attention,
+    reset_launches,
+    ssd_scan,
+)
+from repro_torch.kernels.decode_attention import decode_attention_plain
 from repro_torch.kernels.flash_attention import flash_attention_plain
 from repro_torch.kernels.ssd_scan import ssd_scan_plain
 
@@ -129,6 +136,141 @@ def test_bf16_kernel_reads_strided_views(card, offset):
     ref = flash_attention_plain(q.contiguous(), k.contiguous(), v.contiguous(),
                                 causal=True)
     torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=2e-2)
+
+
+# --------------------------------------------------------------------------
+# decode attention
+# --------------------------------------------------------------------------
+
+def _decode_close(out, ref):
+    """float32 within 1e-5 absolute and relative (the plain version's
+    float32 arithmetic in another order of sums); bfloat16 within that plus
+    one bf16 ulp of the larger of the two values (each side rounds its
+    float32 result once, and the two may fall either side of a rounding
+    boundary)."""
+    diff = (out.float() - ref.float()).abs()
+    lim = 1e-5 + 1e-5 * ref.float().abs()
+    if out.dtype == torch.bfloat16:
+        a = torch.maximum(out.float().abs(), ref.float().abs())
+        lim = lim + torch.exp2(torch.floor(torch.log2(
+            a.clamp_min(torch.finfo(torch.bfloat16).tiny))) - 7)
+    assert torch.isfinite(out).all()
+    assert bool((diff <= lim).all()), float((diff - lim).max())
+
+
+@pytest.mark.parametrize("B,Sk,H,KV,hd,lens", [
+    (256, 2048, 24, 8, 64, "ragged"),     # chat's pool, kv_len 1..2048
+    (48, 4016, 24, 8, 64, "ragged"),      # long-prompt's
+    (4, 1088, 12, 2, 128, "ragged"),      # qwen2: hd 128, G 6
+    (4, 448, 20, 20, 64, "ragged"),       # whisper's self-attention: G 1
+    (4, 1536, 20, 20, 64, None),          # its cross-attention: the whole lane
+    (3, 40, 4, 2, 16, "ragged"),          # the reduced twins
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_matches_plain_on_card(card, B, Sk, H, KV, hd, lens, dtype):
+    g = torch.Generator(device=card).manual_seed(Sk + hd)
+    q = torch.randn(B, 1, H, hd, generator=g, device=card).to(dtype)
+    k = torch.randn(B, Sk, KV, hd, generator=g, device=card).to(dtype)
+    v = torch.randn(B, Sk, KV, hd, generator=g, device=card).to(dtype)
+    kv_len = None
+    if lens is not None:
+        kv_len = torch.randint(1, Sk + 1, (B,), generator=g, device=card, dtype=torch.int32)
+        kv_len[0], kv_len[-1] = 1, Sk
+    reset_launches()
+    out = decode_attention(q, k, v, kv_len)
+    torch.cuda.synchronize()
+    assert LAUNCHES["decode_attention"] == 1
+    _decode_close(out, decode_attention_plain(q, k, v, kv_len))
+
+
+def test_decode_kernel_reads_only_the_live_prefix(card):
+    """Keys and values past a slot's kv_len are never read: NaN there
+    leaves the output finite and unchanged."""
+    g = torch.Generator(device=card).manual_seed(5)
+    q = torch.randn(8, 1, 24, 64, generator=g, device=card).to(torch.bfloat16)
+    k = torch.randn(8, 1000, 8, 64, generator=g, device=card).to(torch.bfloat16)
+    v = torch.randn(8, 1000, 8, 64, generator=g, device=card).to(torch.bfloat16)
+    kv_len = torch.tensor([1, 255, 256, 257, 511, 512, 999, 1000], device=card,
+                          dtype=torch.int32)
+    out = decode_attention(q, k, v, kv_len)
+    for b, n in enumerate(kv_len.tolist()):
+        k[b, n:] = float("nan")
+        v[b, n:] = float("nan")
+    again = decode_attention(q, k, v, kv_len)
+    torch.cuda.synchronize()
+    assert torch.isfinite(again).all() and torch.equal(out, again)
+
+
+def test_decode_step_on_card_launches_the_kernel_per_layer(card):
+    """A 256-slot engine's decode step on the card (granite's 24/8 heads at
+    hd 64, two layers, bf16): the operator once per layer and two kernels
+    named decode_attn_* per call in the device trace.  Then three steps
+    from the engine's cache in float32 (where no router tie can flip) on
+    both routes: logits within 1e-4 of their magnitude, and no
+    synchronisation the plain route does not also make.  The weights are
+    the seeded init with attention rescaled to its contracted width, as
+    chip_smoke.py's parity phases use them: on the raw init the softmax
+    saturates and two orders of the same sums part by ~2e-4 of the logits
+    within three steps."""
+    import dataclasses
+    import warnings
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.launch.train import rescale_attention
+    from repro_torch.models.config import CellTuning, MoEConfig
+    from repro_torch.models.ops import ShardCtx
+    from repro_torch.models.schema import build_schema
+    from repro_torch.models.sharding import init_from_schema
+    from repro_torch.serve import Request, ServeEngine
+    from repro_torch.train.steps import make_serve_step
+
+    cfg = dataclasses.replace(
+        ARCHS["granite-moe-3b-a800m"], n_layers=2, vocab=1000,
+        moe=MoEConfig(n_experts=8, top_k=2, n_experts_padded=8, capacity_factor=4.0))
+    params = init_from_schema(0, build_schema(cfg), torch.float32, card)
+    rescale_attention(params)
+    engine = ServeEngine(cfg, params, slots=256, max_len=512,
+                         tuning=CellTuning(compute_dtype="bfloat16"))
+    rng = np.random.default_rng(2)
+    for i in range(40):
+        engine.submit(Request(i, rng.integers(0, cfg.vocab, size=int(rng.integers(8, 300))),
+                              max_new_tokens=50))
+    engine.tick()                           # admits all 40, one step
+    reset_launches()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        engine.tick()
+    torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA and "decode_attn_" in e.name]
+    assert LAUNCHES["decode_attention"] == cfg.n_layers
+    assert len(kernels) == 2 * cfg.n_layers
+
+    steps = {impl: make_serve_step(cfg, ShardCtx(attention_impl=impl))
+             for impl in ("kernel", "torch")}
+    caches = {impl: {k: v.float() for k, v in engine.cache.items()} for impl in steps}
+    for cache in caches.values():
+        cache["pos"] = torch.as_tensor(engine.slot_pos, device=card)
+    toks = torch.as_tensor(engine._next_tok[:, None], device=card)
+    syncs = {}
+    for _ in range(3):
+        logits = {}
+        for impl, step in steps.items():
+            with warnings.catch_warnings(record=True) as seen:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    logits[impl], _ = step(params, caches[impl], toks)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+            syncs[impl] = sum("called a synchronizing" in str(w.message) for w in seen)
+            caches[impl]["pos"] = caches[impl]["pos"] + 1
+        scale = max(1.0, float(logits["torch"].abs().max()))
+        torch.testing.assert_close(logits["kernel"], logits["torch"],
+                                   atol=1e-4 * scale, rtol=1e-4)
+        assert syncs["kernel"] == syncs["torch"]
+        toks = logits["torch"][:, : cfg.vocab].argmax(-1)[:, None]
 
 
 def test_engine_on_card_launches_kernel_per_layer(card):
@@ -549,6 +691,11 @@ def _reduced_on_both(name, card):
     return cfg, cpu, cast_params(cpu, torch.float32, card)
 
 
+# decode steps of ``_engine_tokens``: two of its three requests run their 5
+# steps side by side on the 2 slots, then the third runs its 5
+ENGINE_STEPS = 10
+
+
 def _engine_tokens(cfg, params, device, prompts):
     from repro_torch.serve import Request, ServeEngine
 
@@ -593,7 +740,8 @@ def test_new_families_on_card_match_cpu(card, name):
     reset_launches()
     on_card = _engine_tokens(cfg, gpu, card, prompts)
     per_request = 0 if cfg.moe is None else cfg.n_layers
-    assert LAUNCHES == {"flash_attention": 3 * per_request, "ssd_scan": 0}
+    assert LAUNCHES == {"flash_attention": 3 * per_request,
+                        "decode_attention": ENGINE_STEPS * per_request, "ssd_scan": 0}
     assert on_card == _engine_tokens(cfg, cpu, "cpu", prompts)
 
 
@@ -730,7 +878,8 @@ def test_whisper_engine_on_card_matches_cpu(card):
     prompts = [rng.integers(0, cfg.vocab, size=n) for n in (12, 9, 14)]
     reset_launches()
     on_card = _engine_tokens(cfg, gpu, card, prompts)
-    assert LAUNCHES == {"flash_attention": 3 * 3 * cfg.n_layers, "ssd_scan": 0}
+    assert LAUNCHES == {"flash_attention": 3 * 3 * cfg.n_layers,
+                        "decode_attention": ENGINE_STEPS * 2 * cfg.n_layers, "ssd_scan": 0}
     assert on_card == _engine_tokens(cfg, cpu, "cpu", prompts)
 
 
@@ -740,7 +889,7 @@ def test_whisper_engine_on_card_matches_cpu(card):
 
 
 def test_kernels_raise_under_autograd_on_card(card):
-    """Neither kernel has a backward: on a CUDA tensor that needs a gradient
+    """No kernel has a backward: on a CUDA tensor that needs a gradient
     the wrapper raises before it launches."""
     g = torch.Generator(device=card).manual_seed(0)
     q = torch.randn(1, 64, 4, 32, generator=g, device=card, requires_grad=True)
@@ -754,11 +903,14 @@ def test_kernels_raise_under_autograd_on_card(card):
         flash_attention(q, k, k)
     with pytest.raises(RuntimeError, match="no backward"):
         ssd_scan(x, dt, A, Bc, Bc, chunk=32)
-    assert LAUNCHES == {"flash_attention": 0, "ssd_scan": 0}
+    with pytest.raises(RuntimeError, match="no backward"):
+        decode_attention(q[:, :1], k, k)
+    assert LAUNCHES == {"flash_attention": 0, "decode_attention": 0, "ssd_scan": 0}
     with torch.no_grad():
         flash_attention(q, k, k)
         ssd_scan(x, dt, A, Bc, Bc, chunk=32)
-    assert LAUNCHES == {"flash_attention": 1, "ssd_scan": 1}
+        decode_attention(q[:, :1], k, k)
+    assert LAUNCHES == {"flash_attention": 1, "decode_attention": 1, "ssd_scan": 1}
 
 
 @pytest.mark.parametrize("name", ["qwen2-1.5b", "zamba2-1.2b", "whisper-large-v3"])
@@ -801,7 +953,7 @@ def test_train_step_on_card_matches_cpu(card, name):
             float(metrics["cpu"]["loss"]), rel=1e-5)
         assert float(metrics["cuda"]["grad_norm"]) == pytest.approx(
             float(metrics["cpu"]["grad_norm"]), rel=1e-4)
-    assert LAUNCHES == {"flash_attention": 0, "ssd_scan": 0}
+    assert LAUNCHES == {"flash_attention": 0, "decode_attention": 0, "ssd_scan": 0}
     for got, want in zip(leaves(states["cuda"][0]), leaves(states["cpu"][0])):
         scale = max(1.0, float(want.abs().max()))
         torch.testing.assert_close(got.cpu(), want, atol=1e-4 * scale, rtol=1e-4)

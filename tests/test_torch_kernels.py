@@ -8,6 +8,12 @@ bf16 ulp at |o| < 1), and 1e-4 for logits around 40.  The JAX wrapper runs
 at its default blocks (one block per sequence at these sizes) to keep
 interpret mode fast; its tiling is covered by tests/test_kernels.py.
 
+Decode attention (one query row a slot against the first ``kv_len`` keys
+of its cache lane): its CPU route is ``attention_reference`` itself, so it
+equals it exactly; against the JAX package's ``attention_reference`` f32
+1e-5 (another order of sums) and bf16 2e-2 (both round a float32 result to
+bf16 once: within one bf16 ulp at |o| < 1).
+
 SSD scan: f32 5e-4 and bf16 5e-2, as tests/test_kernels.py holds the TPU
 kernel to its oracle (float32 cumulative sums over a chunk, exponentiated,
 in another order); 1e-4 against the port's own oracle and chunked path, as
@@ -20,12 +26,21 @@ import torch
 
 from repro.kernels.ops import flash_attention as jax_flash
 from repro.kernels.ops import ssd_scan as jax_ssd_scan
-from repro_torch.kernels import LAUNCHES, flash_attention, reset_launches, ssd_scan
+from repro.models.ops import attention_reference as jax_attention_reference
+from repro_torch.kernels import (
+    LAUNCHES,
+    decode_attention,
+    flash_attention,
+    reset_launches,
+    ssd_scan,
+)
+from repro_torch.kernels.decode_attention import decode_attention_cuda
 from repro_torch.kernels.flash_attention import (
     flash_attention_cuda,
     flash_attention_plain,
 )
 from repro_torch.kernels.ref import attention_ref, ssd_ref
+from repro_torch.models.ops import attention_reference
 from repro_torch.kernels.ssd_scan import ssd_scan_cuda, ssd_scan_plain
 from repro_torch.models.ssm import ssd_chunked
 
@@ -104,9 +119,10 @@ def test_cpu_call_leaves_launch_count_at_zero():
     reset_launches()
     q, k, v = (torch.from_numpy(a) for a in _inputs(1, 32, 32, 2, 1, 16, seed=1))
     flash_attention(q, k, v, causal=True)
+    decode_attention(q[:, :1], k, v, torch.tensor([9]))
     ssd_scan(*(torch.from_numpy(a) for a in _ssd_inputs(1, 20, 2, 8, 4, seed=1)),
              chunk=8)
-    assert LAUNCHES == {"flash_attention": 0, "ssd_scan": 0}
+    assert LAUNCHES == {"flash_attention": 0, "decode_attention": 0, "ssd_scan": 0}
 
 
 def test_causal_needs_equal_lengths():
@@ -145,6 +161,95 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     q, k, v = (torch.from_numpy(a) for a in _inputs(1, 16, 16, 2, 2, 8, seed=4))
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention_cuda(q, k, v, causal=True)
+
+
+# --------------------------------------------------------------------------
+# Decode attention
+# --------------------------------------------------------------------------
+
+# (H, KV, hd): granite-moe-3b's GQA 3, qwen2's GQA 6 at hd 128, whisper's
+# (and zamba2's) MHA
+DECODE_LAYOUTS = [(24, 8, 64), (12, 2, 128), (20, 20, 64)]
+
+
+def _kv_len(kind, B, Sk, seed):
+    """None (the whole lane), one 0-d length, or (B,) ragged lengths with 1
+    and Sk among them."""
+    if kind == "none":
+        return None
+    if kind == "scalar":
+        return torch.tensor(Sk // 2 + 1, dtype=torch.int32)
+    lens = np.random.default_rng(seed).integers(1, Sk + 1, size=B)
+    lens[0], lens[-1] = 1, Sk
+    return torch.as_tensor(lens, dtype=torch.int32)
+
+
+@pytest.mark.parametrize("H,KV,hd", DECODE_LAYOUTS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", ["ragged", "scalar", "none"])
+def test_decode_attention_matches_reference_and_jax(H, KV, hd, dtype, kind):
+    B, Sk = 4, 40
+    q, k, v = _inputs(B, 1, Sk, H, KV, hd, seed=H + hd)
+    td = getattr(torch, dtype)
+    qt, kt, vt = (torch.from_numpy(a).to(td) for a in (q, k, v))
+    kv_len = _kv_len(kind, B, Sk, seed=hd)
+    ours = decode_attention(qt, kt, vt, kv_len)
+    assert ours.dtype == td and ours.shape == (B, 1, H, hd)
+    assert torch.equal(ours, attention_reference(qt, kt, vt, causal=False, kv_len=kv_len))
+    jd = getattr(jnp, dtype)
+    ref = jax_attention_reference(
+        *(jnp.asarray(a, jd) for a in (q, k, v)), causal=False,
+        kv_len=None if kv_len is None else jnp.asarray(kv_len.numpy()))
+    np.testing.assert_allclose(ours.float().numpy(), np.asarray(ref, np.float32),
+                               **(dict(atol=2e-2, rtol=2e-2) if dtype == "bfloat16"
+                                  else dict(atol=1e-5, rtol=1e-5)))
+
+
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_fake_shapes(device, dtype):
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode():
+        q = torch.empty(5, 1, 12, 128, dtype=dtype, device=device)
+        k = torch.empty(5, 300, 2, 128, dtype=dtype, device=device)
+        kv_len = torch.empty(5, dtype=torch.int32, device=device)
+        out = decode_attention(q, k, k, kv_len)
+        whole = decode_attention(q, k, k)
+    for o in (out, whole):
+        assert o.shape == (5, 1, 12, 128) and o.dtype == dtype
+        assert o.device.type == device and o.is_contiguous()
+
+
+@pytest.mark.parametrize("H,KV,hd", DECODE_LAYOUTS)
+def test_decode_attention_flops_equal_the_plain_route(H, KV, hd):
+    from torch.utils.flop_counter import FlopCounterMode
+
+    B, Sk = 3, 50
+    q, k, v = (torch.from_numpy(a) for a in _inputs(B, 1, Sk, H, KV, hd, seed=1))
+    kv_len = _kv_len("ragged", B, Sk, seed=2)
+    with FlopCounterMode(display=False) as op:
+        decode_attention(q, k, v, kv_len)
+    with FlopCounterMode(display=False) as plain:
+        attention_reference(q, k, v, causal=False, kv_len=kv_len)
+    assert op.get_total_flops() == plain.get_total_flops() == 4 * B * H * Sk * hd
+
+
+def test_decode_attention_checks_its_inputs():
+    q, k, v = (torch.from_numpy(a) for a in _inputs(2, 2, 16, 4, 2, 16, seed=6))
+    with pytest.raises(ValueError, match="one query row"):
+        decode_attention(q, k, v)
+    with pytest.raises(ValueError, match="0-d or"):
+        decode_attention(q[:, :1], k, v, torch.tensor([3, 4, 5]))
+    with pytest.raises(TypeError, match="integer"):
+        decode_attention(q[:, :1], k, v, torch.tensor([3.0, 4.0]))
+
+
+def test_decode_kernel_wrapper_refuses_cpu_tensors():
+    """The CUDA wrapper never runs the plain version: CPU input raises."""
+    q, k, v = (torch.from_numpy(a) for a in _inputs(2, 1, 16, 4, 2, 16, seed=4))
+    with pytest.raises(ValueError, match="CUDA"):
+        decode_attention_cuda(q, k, v, torch.tensor([3, 16]))
 
 
 # --------------------------------------------------------------------------
@@ -238,3 +343,77 @@ def test_ssd_scan_checks_shapes():
     x, dt, A, Bc, Cc = (torch.from_numpy(a) for a in _ssd_inputs(1, 16, 2, 8, 4, seed=5))
     with pytest.raises(ValueError, match="does not match"):
         ssd_scan(x, dt[:, :8], A, Bc, Cc, chunk=8)
+
+
+def test_head_dim_sharded_cache_keeps_the_plain_route(monkeypatch):
+    """``_attend_cache`` on the kernel route: plain tensors and a cache
+    whose head dim no mesh axis shards take the operator; a cache sharded
+    on its head dim (``ShardCtx.tp`` on a mesh) keeps ``attention_reference``,
+    whose shards each hold part of every dot product."""
+    import dataclasses
+
+    from torch.distributed.tensor import DTensor, Replicate
+
+    import repro_torch.kernels.ops as kops
+    from repro_torch.launch.mesh import fake_world, make_mesh_from_shape
+    from repro_torch.models import model as tmodel
+    from repro_torch.models.ops import ShardCtx
+
+    routes = []
+
+    def record(name):
+        def fn(q, *args, **kwargs):
+            routes.append(name)
+            return q
+        return fn
+
+    monkeypatch.setattr(tmodel, "attention_reference", record("plain"))
+    monkeypatch.setattr(kops, "decode_attention", record("kernel"))
+    q, k, v = (torch.from_numpy(a) for a in _inputs(2, 1, 16, 4, 2, 16, seed=8))
+    kv_len = torch.tensor([3, 16])
+    tmodel._attend_cache(q, k, v, ShardCtx(), kv_len)
+    tmodel._attend_cache(q, k, v, ShardCtx(attention_impl="torch"), kv_len)
+    assert routes == ["kernel", "plain"]
+    with fake_world(2):
+        mesh = make_mesh_from_shape((1, 2), ("data", "model"), "cpu")
+        q, k, v = (DTensor.from_local(t, mesh, (Replicate(), Replicate()))
+                   for t in (q, k, v))
+        kv_len = DTensor.from_local(kv_len, mesh, (Replicate(), Replicate()))
+        ctx = ShardCtx(enabled=True)
+        routes.clear()
+        tmodel._attend_cache(q, k, v, ctx, kv_len)
+        assert routes == ["plain"]
+        tmodel._attend_cache(q, k, v, dataclasses.replace(ctx, tp=None), kv_len)
+        assert routes == ["plain", "kernel"]
+
+
+@pytest.mark.parametrize("kind", ["ragged", "scalar", "none"])
+def test_decode_attention_runs_per_shard_of_the_batch(kind):
+    """On DTensors the operator runs per shard with the batch sharded (a
+    0-d ``kv_len`` replicated) or everything replicated; a head-dim shard
+    has no rule and raises."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.launch.mesh import fake_world, make_mesh_from_shape
+
+    B, Sk = 4, 24
+    q, k, v = (torch.from_numpy(a) for a in _inputs(B, 1, Sk, 4, 2, 16, seed=9))
+    kv_len = _kv_len(kind, B, Sk, seed=3)
+    want = attention_reference(q, k, v, causal=False, kv_len=kv_len)
+    with fake_world(2):
+        mesh = make_mesh_from_shape((2,), ("data",), "cpu")
+        for place in (Shard(0), Replicate()):
+            def dt(t, p=place):
+                return DTensor.from_local(
+                    t[:B // 2] if p == Shard(0) else t, mesh, (p,), run_check=False,
+                    shape=t.shape, stride=t.stride())
+            lens = None if kv_len is None else \
+                dt(kv_len, place if kv_len.ndim else Replicate())
+            out = decode_attention(dt(q), dt(k), dt(v), lens)
+            assert out.placements == (place,) and out.shape == q.shape
+            rows = B // 2 if place == Shard(0) else B
+            torch.testing.assert_close(out.to_local(), want[:rows], atol=0, rtol=0)
+        sharded = [DTensor.from_local(t[..., :8], mesh, (Shard(3),), run_check=False,
+                                      shape=t.shape, stride=t.stride()) for t in (q, k, v)]
+        with pytest.raises(ValueError, match="no sharding rule"):
+            decode_attention(*sharded)

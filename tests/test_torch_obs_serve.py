@@ -118,6 +118,26 @@ def test_step_spans_partition_engine_clocks(moe_setup):
             assert enq.t1 == wait.t0 and enq.parent == wait.parent
 
 
+def test_tick_counts_the_keys_its_decode_step_attends_to(moe_setup, monkeypatch):
+    """``serve.tick``'s ``kv_tokens``: the sum over every slot (free ones at
+    position 0) of the step's kv_len, ``slot_pos + 1``, read before the step
+    advances the positions; 0 on a tick without a step."""
+    seen = []
+    step = ServeEngine._step
+
+    def counted(self, occupied, on):
+        seen.append(int((self.slot_pos + 1).sum()))
+        return step(self, occupied, on)
+
+    monkeypatch.setattr(ServeEngine, "_step", counted)
+    TRACER.enabled = True
+    engine, *_ = _serve(moe_setup, sizes=(9, 11, 7, 5, 3), slots=3, max_new=4)
+    ticks = TRACER.by_name("serve.tick")
+    assert [s.attrs["kv_tokens"] for s in ticks if s.attrs["live"]] == seen
+    assert all(s.attrs["kv_tokens"] == 0 for s in ticks if not s.attrs["live"])
+    assert len(seen) == engine.stats.ticks and min(seen) > engine.slots
+
+
 def test_off_records_nothing_and_serves_the_same_tokens(moe_setup):
     _, off, *_ = _serve(moe_setup)
     assert TRACER.spans == [] and not TRACER.on
