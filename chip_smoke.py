@@ -1,7 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one CUDA card.
 
-  python3 chip_smoke.py
+  python3 chip_smoke.py              every phase below
+  python3 chip_smoke.py --kernels    phases 1 to 4 alone (device, build and
+                                     the three kernels against their plain
+                                     versions, timed)
 
 Phases, each printing one JSON line:
   1. device  — the card's name and power limit (nvidia-smi), torch/CUDA
@@ -15,7 +18,11 @@ Phases, each printing one JSON line:
                encoder over 1536 frames and its cross-attention of 224
                prompt tokens over them, both non-causal, bf16 and the
                encoder also float32; its decoder self-attention over 224,
-               causal), causal slices of later query rows against every
+               causal; granite-4.0-h-small's NoPE layers, 32/8 heads of
+               128 with scores times 1/128, causal over the long-doc
+               cell's longest prompt, 12,288, and a ragged 6,000 in bf16
+               and 2,048 in float32, checked in blocks of query rows past
+               4,096 rows), causal slices of later query rows against every
                key (``q_offset``, as sequence-parallel attention calls it)
                and the repo's test shapes, with its time, the plain
                version's, SDPA's (a yardstick only) and the least time the
@@ -28,21 +35,30 @@ Phases, each printing one JSON line:
                pool (48 of 4016, 30 live), each slot at a seeded live
                length drawn from the cell's traffic mix; qwen2's 12/2 at
                hd 128, whisper's 20/20 (self, and cross over the 1536
-               frames with no kv_len), the reduced twins' hd 16, float32
+               frames with no kv_len), granite-4.0-h-small's 32/8 at hd
+               128 with scores times 1/128 at the long-doc pool (32 slots
+               of 12,800, all live, lengths drawn from the cell's traffic),
+               the reduced twins' hd 16, float32
                and bfloat16, lengths 1 and Sk among them.  float32 within
                1e-5 (the same float32 arithmetic in another order of sums),
                bfloat16 within that plus one bf16 ulp of the larger value
                (each side rounds its float32 result once).  The two pool
                rows are timed with the plain version, SDPA under the same
                length mask (a yardstick only) and the least time of their
-               live bytes.
+               live bytes; so is the long-doc pool row.
   4. ssd     — the SSD scan kernel against its plain version at zamba2's
-               prefill shape, ragged, and the repo's test shapes, in float32
+               prefill shape, ragged, granite-4.0-h-small's (128 heads of
+               64, d_state 128) at 2,048, 6,144 and 12,288 tokens, the
+               long-doc cell's prompts (and 2,048 in bfloat16), and the
+               repo's test shapes, in float32
                and bfloat16, with its time, the plain version's and its
                bound (no single PyTorch call computes it: library_ms null);
                in float32 both also stand beside the step recurrence
-               (ref.ssd_ref) as a second witness.  The slice rows also time
-               each of the kernel's five passes alone (pass_ms).
+               (ref.ssd_ref) as a second witness.  The slice and long-doc
+               rows also time each of the kernel's five passes alone
+               (pass_ms); the long-doc rows also give the share of the
+               bf16 roofline that the benchmark's ``ssd_scan_roofline``
+               reads (its ``ssd_work`` at the configuration's bf16 size).
   5. serve   — per model (qwen2-1.5b, zamba2-1.2b, granite-moe-3b-a800m,
                falcon-mamba-7b, whisper-large-v3) at full width and depth
                in bf16, seeded random weights, ServeEngine(slots=4,
@@ -327,6 +343,14 @@ TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # the flash kernel's route for each dtype (csrc/flash_attention.cu)
 FLASH_ROUTE = {"bfloat16": "tensor_core_bf16", "float32": "cuda_core_f32"}
 SSD_TOL = {"float32": 5e-4, "bfloat16": 5e-2}
+# granite-4.0-h-small's attention scores: times ``attention_multiplier``
+# (1/128, not 1/sqrt(128)); its q and k drawn LONG_DOC_QK times a standard
+# normal, so the scores have unit variance, as the benchmark's weights give
+LONG_DOC_SCALE = 0.0078125
+LONG_DOC_QK = 128 ** 0.25
+# query rows per block where the plain version of a long attention is
+# checked block by block (its full float32 score matrix would not fit)
+PLAIN_ROWS = 1024
 
 
 def emit(phase: str, **fields) -> None:
@@ -469,7 +493,8 @@ def phase_build():
 FLASH_AT = {"at_zamba2": ("zamba2", "bfloat16"), "at_granite": ("granite", "bfloat16"),
             "at_whisper_encoder": ("whisper_encoder", "bfloat16"),
             "at_whisper_cross": ("whisper_cross", "bfloat16"),
-            "at_whisper_self": ("whisper_self", "bfloat16")}
+            "at_whisper_self": ("whisper_self", "bfloat16"),
+            "at_long_doc": ("long_doc", "bfloat16")}
 
 
 def phase_kernel(peaks) -> tuple:
@@ -498,6 +523,13 @@ def phase_kernel(peaks) -> tuple:
         cases.append(((1, 1536, 1536, 20, 20, 64), False, dt, 1.0, "whisper_encoder"))
     cases.append(((1, 224, 1536, 20, 20, 64), False, "bfloat16", 1.0, "whisper_cross"))
     cases.append(((1, 224, 224, 20, 20, 64), True, "bfloat16", 1.0, "whisper_self"))
+    # granite-4.0-h-small's NoPE layers at the long-doc cell's longest
+    # prompt, a ragged one, and the float32 route
+    cases.append(((1, 12288, 12288, 32, 8, 128), True, "bfloat16", LONG_DOC_QK, "long_doc"))
+    cases.append(((1, 6000, 6000, 32, 8, 128), True, "bfloat16", LONG_DOC_QK,
+                  "long_doc_ragged"))
+    cases.append(((1, 2048, 2048, 32, 8, 128), True, "float32", LONG_DOC_QK,
+                  "long_doc_f32"))
     for (B, S, H, KV, hd) in ATTN_SHAPES:
         for dt in ("float32", "bfloat16"):
             for causal in (True, False):
@@ -508,21 +540,29 @@ def phase_kernel(peaks) -> tuple:
     # a causal slice of later query rows against every key, its mask
     # starting at the slice's first row (a shard of a sequence-sharded q)
     offsets = {"q_slice": 768, "q_slice_ragged": 450}
+    # the scores' factor where it is not 1/sqrt(hd)
+    softmax_scales = {"long_doc": LONG_DOC_SCALE, "long_doc_ragged": LONG_DOC_SCALE,
+                      "long_doc_f32": LONG_DOC_SCALE}
     for dt in ("bfloat16", "float32"):
         cases.append(((1, 256, 1024, 12, 2, 128), True, dt, 1.0, "q_slice"))
         cases.append(((1, 100, 1000, 12, 2, 128), True, dt, 1.0, "q_slice_ragged"))
 
-    timed = {case for case, _ in FLASH_AT.values()} | {"slice", "granite"}
+    timed = {case for case, _ in FLASH_AT.values()} | {"slice", "granite", "long_doc_f32"}
     main_entry, at = None, {}
     for (B, Sq, Sk, H, KV, hd), causal, dt, scale, what in cases:
         dtype = getattr(torch, dt)
         q = (scale * torch.randn(B, Sq, H, hd, generator=gen, device=dev)).to(dtype)
         k = (scale * torch.randn(B, Sk, KV, hd, generator=gen, device=dev)).to(dtype)
         v = torch.randn(B, Sk, KV, hd, generator=gen, device=dev).to(dtype)
-        off = offsets.get(what, 0)
-        out = flash_attention_cuda(q, k, v, causal=causal, q_offset=off)
+        off, sm = offsets.get(what, 0), softmax_scales.get(what)
+        out = flash_attention_cuda(q, k, v, causal=causal, q_offset=off, scale=sm)
         torch.cuda.synchronize()
-        ref = flash_attention_plain(q, k, v, causal=causal, q_offset=off)
+        if Sq > 4 * PLAIN_ROWS:               # causal, square: rows in blocks
+            ref = torch.cat([flash_attention_plain(
+                q[:, r:r + PLAIN_ROWS], k, v, causal=True, q_offset=r, scale=sm)
+                for r in range(0, Sq, PLAIN_ROWS)], dim=1)
+        else:
+            ref = flash_attention_plain(q, k, v, causal=causal, q_offset=off, scale=sm)
         tol = 1e-4 if what == "logits~40" else TOL[dt]
         diff = (out.float() - ref.float()).abs()
         err = float(diff.max())
@@ -533,14 +573,20 @@ def phase_kernel(peaks) -> tuple:
                    tol=tol, ok=ok)
         if off:
             row["q_offset"] = off
+        if sm is not None:
+            row["scale"] = sm
+        del ref, diff
         if what in timed:
-            row["ms"] = cuda_ms(lambda: flash_attention_cuda(q, k, v, causal=causal))
-            row["eager_ms"] = eager_ms(lambda: flash_attention_cuda(q, k, v, causal=causal))
-            row["plain_ms"] = cuda_ms(lambda: flash_attention_plain(q, k, v, causal=causal))
+            row["ms"] = cuda_ms(lambda: flash_attention_cuda(q, k, v, causal=causal, scale=sm))
+            row["eager_ms"] = eager_ms(
+                lambda: flash_attention_cuda(q, k, v, causal=causal, scale=sm))
+            # past 4 blocks of rows the plain version's scores would not fit
+            row["plain_ms"] = None if Sq > 4 * PLAIN_ROWS else cuda_ms(
+                lambda: flash_attention_plain(q, k, v, causal=causal, scale=sm))
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
             row["library_ms"] = cuda_ms(
                 lambda: torch.nn.functional.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=causal, enable_gqa=True))
+                    qt, kt, vt, is_causal=causal, enable_gqa=True, scale=sm))
             row["bound_ms"], row["bound_by"] = attention_bound_ms(
                 B, Sq, Sk, H, KV, hd, causal, dtype, peaks)
             for key, case in FLASH_AT.items():
@@ -572,8 +618,9 @@ def _live_lengths(rng, pool, live, max_len, prompt, output):
     return lens[rng.permutation(pool)]
 
 
-# (case, B, Sk, H, KV, hd, dtype, kv_len): the two benchmark pools (lengths
-# drawn from their cells' traffic) are timed
+# (case, B, Sk, H, KV, hd, dtype, kv_len): the three benchmark pools (lengths
+# drawn from their cells' traffic) are timed; long-doc's scores take
+# LONG_DOC_SCALE
 DECODE_CASES = [
     ("chat", 256, 2048, 24, 8, 64, "bfloat16",
      ("live", 256, ("lognormal", 256, 0.6, 64, 1024), ("lognormal", 384, 0.5, 128, 1024))),
@@ -586,6 +633,9 @@ DECODE_CASES = [
     ("whisper_cross", 4, 1536, 20, 20, 64, "bfloat16", None),
     ("whisper_cross", 4, 1536, 20, 20, 64, "float32", None),
     ("zamba2", 4, 1088, 32, 32, 64, "bfloat16", "ragged"),
+    ("long_doc", 32, 12800, 32, 8, 128, "bfloat16",
+     ("live", 32, ("lognormal", 6144, 0.5, 2048, 12288), ("lognormal", 192, 0.5, 64, 512))),
+    ("long_doc", 32, 12800, 32, 8, 128, "float32", "ragged"),
     ("twin", 3, 48, 4, 2, 16, "float32", "ragged"),
     ("twin", 3, 48, 4, 4, 16, "float32", "ragged"),
 ]
@@ -627,8 +677,9 @@ def phase_decode(peaks) -> dict:
     timed = {}
     for what, B, Sk, H, KV, hd, dt, how in DECODE_CASES:
         dtype = getattr(torch, dt)
-        q = torch.randn(B, 1, H, hd, generator=gen, device=dev).to(dtype)
-        k = torch.randn(B, Sk, KV, hd, generator=gen, device=dev).to(dtype)
+        sm, mag = (LONG_DOC_SCALE, LONG_DOC_QK) if what == "long_doc" else (None, 1.0)
+        q = (mag * torch.randn(B, 1, H, hd, generator=gen, device=dev)).to(dtype)
+        k = (mag * torch.randn(B, Sk, KV, hd, generator=gen, device=dev)).to(dtype)
         v = torch.randn(B, Sk, KV, hd, generator=gen, device=dev).to(dtype)
         if how is None:
             lens = np.full(B, Sk)
@@ -640,14 +691,16 @@ def phase_decode(peaks) -> dict:
             else:
                 lens = _live_lengths(rng, B, how[1], Sk, how[2], how[3])
             kv_len = torch.as_tensor(lens, dtype=torch.int32, device=dev)
-        out = decode_attention_cuda(q, k, v, kv_len)
+        out = decode_attention_cuda(q, k, v, kv_len, sm)
         torch.cuda.synchronize()
-        ref = decode_attention_plain(q, k, v, kv_len)
+        ref = decode_attention_plain(q, k, v, kv_len, sm)
         err, ok = decode_close(out, ref)
         row = dict(case=what, shape=[B, 1, Sk, H, KV, hd], dtype=dt,
                    kernel_route="flash_decode_f32_math", kv_len_mean=float(lens.mean()),
                    kv_len_min=int(lens.min()), kv_len_max=int(lens.max()),
                    max_abs_err=err, ok=ok)
+        if sm is not None:
+            row["scale"] = sm
         if how is not None and how[0] == "live":
             tokens = int(lens.sum())
             es = 2 if dtype == torch.bfloat16 else 4
@@ -656,14 +709,14 @@ def phase_decode(peaks) -> dict:
             row["live_tokens"] = tokens
             row["bound_ms"] = 1e3 * max(t_ops, t_mem)
             row["bound_by"] = "operations" if t_ops >= t_mem else "bytes"
-            row["ms"] = cuda_ms(lambda: decode_attention_cuda(q, k, v, kv_len))
-            row["eager_ms"] = eager_ms(lambda: decode_attention_cuda(q, k, v, kv_len))
-            row["plain_ms"] = cuda_ms(lambda: decode_attention_plain(q, k, v, kv_len))
+            row["ms"] = cuda_ms(lambda: decode_attention_cuda(q, k, v, kv_len, sm))
+            row["eager_ms"] = eager_ms(lambda: decode_attention_cuda(q, k, v, kv_len, sm))
+            row["plain_ms"] = cuda_ms(lambda: decode_attention_plain(q, k, v, kv_len, sm))
             mask = (torch.arange(Sk, device=dev)[None, :] < kv_len[:, None])[:, None, None]
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
             row["library_ms"] = cuda_ms(
                 lambda: torch.nn.functional.scaled_dot_product_attention(
-                    qt, kt, vt, attn_mask=mask, enable_gqa=True))
+                    qt, kt, vt, attn_mask=mask, enable_gqa=True, scale=sm))
             row["roofline_pct"] = 100.0 * row["bound_ms"] / row["ms"]
             timed[what] = row
         emit("decode", **row)
@@ -672,7 +725,18 @@ def phase_decode(peaks) -> dict:
     return timed
 
 
-def phase_ssd(peaks) -> dict:
+def _metric(name):
+    """The benchmark's reader ``portbench/metrics/<name>.py`` as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(ROOT, "portbench", "metrics", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_ssd(peaks) -> tuple:
     import math
 
     import torch
@@ -686,23 +750,29 @@ def phase_ssd(peaks) -> dict:
         ssd_scan_plain,
     )
 
+    ssd_work = _metric("ssd_scan_roofline").ssd_work
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
     cases = []
     for S in (1024, 1000):                    # zamba2's prefill, and ragged
         for dt in ("float32", "bfloat16"):
             cases.append(((1, S, 64, 64, 64, 256), dt, "slice"))
+    # granite-4.0-h-small's mixer over the long-doc cell's prompts (2,048 to
+    # 12,288, median 6,144), float32 as mamba2_block passes them
+    for S in (2048, 6144, 12288):
+        cases.append(((1, S, 128, 64, 128, 256), "float32", "long_doc"))
+    cases.append(((1, 2048, 128, 64, 128, 256), "bfloat16", "long_doc"))
     for shape in SSD_SHAPES:
         for dt in ("float32", "bfloat16"):
             cases.append((shape, dt, "tests"))
 
-    main_entry = None
+    main_entry, long_doc = None, {}
     for (B, S, nh, hp, n, chunk), dt, what in cases:
         dtype = getattr(torch, dt)
         x = torch.randn(B, S, nh, hp, generator=gen, device=dev)
         Bc = torch.randn(B, S, n, generator=gen, device=dev)
         Cc = torch.randn(B, S, n, generator=gen, device=dev)
-        if what == "slice":
+        if what in ("slice", "long_doc"):
             # the model's ranges: softplus(dt_bias) in [1e-3, 1e-1] and
             # A = -exp(A_log) = -(1..nh), so dt*A reaches about -6 a step
             lo, hi = math.log(1e-3), math.log(1e-1)
@@ -735,7 +805,7 @@ def phase_ssd(peaks) -> dict:
                                   ("plain_vs_oracle", (yr, hr))):
                 row[key] = max(float((yy - yo).abs().max()),
                                float((hh - ho).abs().max()))
-        if what == "slice":
+        if what in ("slice", "long_doc"):
             row["ms"] = cuda_ms(lambda: ssd_scan_cuda(x, dts, A, Bc, Cc, chunk=chunk))
             row["eager_ms"] = eager_ms(lambda: ssd_scan_cuda(x, dts, A, Bc, Cc, chunk=chunk))
             # each pass alone, on the buffers of one full run (every pass
@@ -749,12 +819,19 @@ def phase_ssd(peaks) -> dict:
             row["bound_ms"], row["bound_by"], row["bound_flops"], row["bound_bytes"] = \
                 ssd_bound_ms(B, S, nh, hp, n, dtype, peaks)
             row["chunked_flops"] = ssd_chunked_flops(B, S, nh, hp, n, chunk)
-            if S == 1024 and dt == "float32":  # what the model path passes
+            if what == "slice" and S == 1024 and dt == "float32":  # the model path's
                 main_entry = row
+        if what == "long_doc":
+            # the benchmark's yardstick: the configuration's bf16 bytes and
+            # the bf16 tensor rate, whatever the inputs' type here
+            flops, nbytes = ssd_work(B, S, nh, hp, n, 2)
+            bound_ms = 1e3 * max(flops / peaks[0], nbytes / peaks[2])
+            row["roofline_bf16_pct"] = 100.0 * bound_ms / row["ms"]
+            long_doc[f"at_long_doc_{S}_{dt}"] = row
         emit("ssd", **row)
         if not ok:
             raise RuntimeError(f"ssd_scan disagrees with its plain version: {row}")
-    return main_entry
+    return main_entry, long_doc
 
 
 def _prompts(rng, n, length, vocab):
@@ -3183,7 +3260,7 @@ def phase_mesh(one_card, peaks) -> tuple:
     return launches, _mesh_kernel_rows(peaks, real["rows"])
 
 
-def main() -> int:
+def main(kernels_only: bool = False) -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -3204,6 +3281,13 @@ def main() -> int:
 
     smi, name, peaks = timed("device", phase_device)
     timed("build", phase_build)
+    if kernels_only:
+        timed("kernel", phase_kernel, peaks)
+        timed("decode", phase_decode, peaks)
+        timed("ssd", phase_ssd, peaks)
+        emit("seconds", **seconds)
+        print(smi, flush=True)
+        return 0
     return _main_phases(seconds, timed, smi, name, peaks)
 
 
@@ -3214,7 +3298,7 @@ def _main_phases(seconds, timed, smi, name, peaks) -> int:
 
     flash, flash_at = timed("kernel", phase_kernel, peaks)
     decode = timed("decode", phase_decode, peaks)
-    ssd = timed("ssd", phase_ssd, peaks)
+    ssd, ssd_at = timed("ssd", phase_ssd, peaks)
 
     launches = {}
     for arch, check, fn, arg in (
@@ -3242,9 +3326,9 @@ def _main_phases(seconds, timed, smi, name, peaks) -> int:
     emit("seconds", **seconds)
 
     entries = []
-    decode_at = {"at_long_prompt": decode["long_prompt"]}
+    decode_at = {"at_long_prompt": decode["long_prompt"], "at_long_doc": decode["long_doc"]}
     for spec, row, also in ((FLASH, flash, flash_at), (DECODE, decode["chat"], decode_at),
-                            (SSD, ssd, {})):
+                            (SSD, ssd, ssd_at)):
         per_path = {arch: n.get(spec["name"], 0) for arch, n in launches.items()}
         entry = dict(spec, launches=sum(per_path.values()),
                      launches_per_path=per_path, max_abs_err=row["max_abs_err"],
@@ -3274,4 +3358,4 @@ def _main_phases(seconds, timed, smi, name, peaks) -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--mesh-child"]:
         sys.exit(mesh_child(sys.argv[2]))
-    sys.exit(main())
+    sys.exit(main(kernels_only=sys.argv[1:2] == ["--kernels"]))

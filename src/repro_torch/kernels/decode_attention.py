@@ -14,6 +14,8 @@ must lie in [1, Sk]: the kernel reads the lengths on the device, where no
 check can raise without the host waiting for it, and takes a value outside
 as the nearest end of that range.
 
+Scores are scaled by ``scale`` (None: ``1/sqrt(hd)``).
+
 ``decode_attention_cuda`` launches the kernel and raises on anything it
 does not take; it never falls back.  ``decode_attention_plain`` is
 ``models.ops.attention_reference`` with ``kv_len``: the CPU path and the
@@ -55,11 +57,12 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                           kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
+                           kv_len: Optional[torch.Tensor] = None,
+                           scale: Optional[float] = None) -> torch.Tensor:
     """The kernel's function in plain PyTorch (float32 math, output in q's
     dtype): ``attention_reference`` over the first ``kv_len`` keys."""
     _check(q, k, v, kv_len)
-    return attention_reference(q, k, v, causal=False, kv_len=kv_len)
+    return attention_reference(q, k, v, causal=False, kv_len=kv_len, scale=scale)
 
 
 def _kernel():
@@ -82,7 +85,8 @@ def _kernel():
 
 
 def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
+                          kv_len: Optional[torch.Tensor] = None,
+                          scale: Optional[float] = None) -> torch.Tensor:
     """Launch the kernel's two passes on PyTorch's current stream; (B, 1, H,
     hd) out in q's dtype.  Raises on what the kernel does not take and when
     a launch fails.  Nothing here waits for the device."""
@@ -123,7 +127,8 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  None if kv_len is None else kv_len.data_ptr(), out.data_ptr(),
                  part_o.data_ptr(), part_ml.data_ptr(), _DTYPES[q.dtype], B, H, KV, Sk,
-                 hd, strides, 1.0 / math.sqrt(hd), stream)
+                 hd, strides, 1.0 / math.sqrt(hd) if scale is None else float(scale),
+                 stream)
     if err != 0:
         raise RuntimeError(f"decode_attention kernel failed: CUDA error {err} "
                            f"({err_str(err).decode()})")

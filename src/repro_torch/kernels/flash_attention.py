@@ -8,6 +8,8 @@ position ``q_offset + i`` and needs ``q_offset + Sq <= Sk``: ``q_offset``
 0 with Sq == Sk is the square causal product, a positive one a slice of
 later query rows against every key (a shard of a sequence-sharded q).
 
+Scores are scaled by ``scale`` (None: ``1/sqrt(hd)``).
+
 ``flash_attention_cuda`` launches the kernel and raises on anything it does
 not take; it never falls back.  ``flash_attention_plain`` computes the same
 function in plain PyTorch: the CPU path and the comparison on the card.
@@ -16,6 +18,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import Optional
 
 import torch
 
@@ -43,20 +46,25 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          *, causal: bool, q_offset: int = 0) -> torch.Tensor:
+                          *, causal: bool, q_offset: int = 0,
+                          scale: Optional[float] = None) -> torch.Tensor:
     """The kernel's function in plain PyTorch: float32 math, GQA by
     grouping query heads, output in q's dtype."""
     _check(q, k, v, causal, q_offset)
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     qg = q.float().reshape(B, Sq, KV, H // KV, hd)
-    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) * (1.0 / math.sqrt(hd))
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) * _scale(scale, hd)
     if causal:
         keep = torch.ones(Sq, Sk, dtype=torch.bool, device=q.device).tril(q_offset)
         s = s.masked_fill(~keep, float("-inf"))
     w = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", w, v.float())
     return out.reshape(B, Sq, H, hd).to(q.dtype)
+
+
+def _scale(scale: Optional[float], hd: int) -> float:
+    return 1.0 / math.sqrt(hd) if scale is None else float(scale)
 
 
 def _kernel():
@@ -79,7 +87,8 @@ def _kernel():
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         *, causal: bool, q_offset: int = 0) -> torch.Tensor:
+                         *, causal: bool, q_offset: int = 0,
+                         scale: Optional[float] = None) -> torch.Tensor:
     """Launch the CUDA kernel on PyTorch's current stream; (B, Sq, H, hd)
     out in q's dtype.  Raises on what the kernel does not take and when
     the launch fails."""
@@ -110,7 +119,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                  _DTYPES[q.dtype], B, H, KV, Sq, Sk, hd, strides,
-                 1.0 / math.sqrt(hd), int(causal), int(q_offset), stream)
+                 _scale(scale, hd), int(causal), int(q_offset), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel failed: CUDA error {err} "
                            f"({err_str(err).decode()})")

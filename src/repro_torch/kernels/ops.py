@@ -95,25 +95,26 @@ def _rule_of(name: str, rules, *tensors: torch.Tensor) -> None:
 @torch.library.custom_op("repro_torch::flash_attention", mutates_args=(),
                          device_types="cpu")
 def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              causal: bool, q_offset: int) -> torch.Tensor:
+              causal: bool, q_offset: int, scale: Optional[float]) -> torch.Tensor:
     # contiguous, as the fake implementation's output
-    return flash_attention_plain(q, k, v, causal=causal, q_offset=q_offset).contiguous()
+    return flash_attention_plain(q, k, v, causal=causal, q_offset=q_offset,
+                                 scale=scale).contiguous()
 
 
 @_flash_op.register_kernel("cuda")
-def _flash_cuda(q, k, v, causal, q_offset):
-    out = flash_attention_cuda(q, k, v, causal=causal, q_offset=q_offset)
+def _flash_cuda(q, k, v, causal, q_offset, scale):
+    out = flash_attention_cuda(q, k, v, causal=causal, q_offset=q_offset, scale=scale)
     LAUNCHES["flash_attention"] += 1
     return out
 
 
 @_flash_op.register_fake
-def _flash_fake(q, k, v, causal, q_offset):
+def _flash_fake(q, k, v, causal, q_offset, scale):
     return q.new_empty(q.shape)
 
 
 @register_flop_formula(torch.ops.repro_torch.flash_attention)
-def _flash_flops(q_shape, k_shape, v_shape, causal, q_offset, *args,
+def _flash_flops(q_shape, k_shape, v_shape, causal, q_offset, scale=None, *args,
                  out_shape=None, **kwargs) -> int:
     """QK^T and PV over every (query, key) pair, causal or not."""
     B, Sq, H, hd = q_shape
@@ -124,10 +125,10 @@ _FLASH_RULES = ((Replicate(),) * 3, (Shard(0),) * 3, (Shard(2),) * 3)
 
 
 @register_sharding(torch.ops.repro_torch.flash_attention.default)
-def _flash_sharding(q, k, v, causal, q_offset):
+def _flash_sharding(q, k, v, causal, q_offset, scale):
     """Per mesh dim: all replicated, the batch sharded, or the heads of q,
     k and v sharded together (out like q)."""
-    return [([rule[0]], [*rule, None, None]) for rule in _FLASH_RULES]
+    return [([rule[0]], [*rule, None, None, None]) for rule in _FLASH_RULES]
 
 
 def flash_attention(
@@ -137,14 +138,16 @@ def flash_attention(
     *,
     causal: bool = True,
     q_offset: int = 0,
+    scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Flash attention in the model layout; returns (B, Sq, H, hd).
     ``q_offset``: the position of q's first row under the causal mask (a
-    slice of later query rows against every key; 0 when Sq == Sk)."""
+    slice of later query rows against every key; 0 when Sq == Sk).
+    ``scale``: the scores' factor (None: 1/sqrt(hd))."""
     _forward_only("flash_attention", q, k, v)
     _on_cpu_or_cuda("flash_attention", q)
     _rule_of("flash_attention", _FLASH_RULES, q, k, v)
-    return _flash_op(q, k, v, causal, q_offset)
+    return _flash_op(q, k, v, causal, q_offset, scale)
 
 
 # -- decode attention ---------------------------------------------------------
@@ -152,24 +155,24 @@ def flash_attention(
 @torch.library.custom_op("repro_torch::decode_attention", mutates_args=(),
                          device_types="cpu")
 def _decode_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-               kv_len: Optional[torch.Tensor]) -> torch.Tensor:
-    return decode_attention_plain(q, k, v, kv_len).contiguous()
+               kv_len: Optional[torch.Tensor], scale: Optional[float]) -> torch.Tensor:
+    return decode_attention_plain(q, k, v, kv_len, scale).contiguous()
 
 
 @_decode_op.register_kernel("cuda")
-def _decode_cuda(q, k, v, kv_len):
-    out = decode_attention_cuda(q, k, v, kv_len)
+def _decode_cuda(q, k, v, kv_len, scale):
+    out = decode_attention_cuda(q, k, v, kv_len, scale)
     LAUNCHES["decode_attention"] += 1
     return out
 
 
 @_decode_op.register_fake
-def _decode_fake(q, k, v, kv_len):
+def _decode_fake(q, k, v, kv_len, scale):
     return q.new_empty(q.shape)
 
 
 @register_flop_formula(torch.ops.repro_torch.decode_attention)
-def _decode_flops(q_shape, k_shape, v_shape, kv_len_shape, *args,
+def _decode_flops(q_shape, k_shape, v_shape, kv_len_shape, scale=None, *args,
                   out_shape=None, **kwargs) -> int:
     """QK^T and PV over the whole lane, as ``attention_reference`` computes
     them (the kernel reads only the live prefix; the count is the plain
@@ -188,9 +191,9 @@ def _decode_rules(kv_len):
 
 
 @register_sharding(torch.ops.repro_torch.decode_attention.default)
-def _decode_sharding(q, k, v, kv_len):
+def _decode_sharding(q, k, v, kv_len, scale):
     """Per mesh dim: all replicated, or the batch sharded (out like q)."""
-    return [([rule[0]], list(rule)) for rule in _decode_rules(kv_len)]
+    return [([rule[0]], [*rule, None]) for rule in _decode_rules(kv_len)]
 
 
 def decode_attention(
@@ -198,10 +201,12 @@ def decode_attention(
     k: torch.Tensor,                          # (B, Sk, KV, hd)
     v: torch.Tensor,                          # (B, Sk, KV, hd)
     kv_len: Optional[torch.Tensor] = None,    # None, 0-d or (B,): keys live
+    scale: Optional[float] = None,
 ) -> torch.Tensor:
     """One query row a slot against the first ``kv_len`` keys of its cache
     lane (all Sk where None), non-causal; returns (B, 1, H, hd) in q's
-    dtype.  Each length must lie in [1, Sk]."""
+    dtype.  Each length must lie in [1, Sk].  ``scale``: the scores'
+    factor (None: 1/sqrt(hd))."""
     _forward_only("decode_attention", q, k, v)
     _on_cpu_or_cuda("decode_attention", q)
     rules = _decode_rules(kv_len)
@@ -209,7 +214,7 @@ def decode_attention(
         _rule_of("decode_attention", tuple(r[:3] for r in rules), q, k, v)
     else:
         _rule_of("decode_attention", rules, q, k, v, kv_len)
-    return _decode_op(q, k, v, kv_len)
+    return _decode_op(q, k, v, kv_len, scale)
 
 
 # -- SSD scan -----------------------------------------------------------------

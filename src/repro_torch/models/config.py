@@ -7,7 +7,6 @@ is recorded separately so the logical vocab is preserved for the loss.
 """
 from __future__ import annotations
 
-import dataclasses
 import enum
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
@@ -18,6 +17,7 @@ class Family(str, enum.Enum):
     MOE = "moe"              # decoder-only with MoE MLP
     SSM = "ssm"              # pure mamba1
     HYBRID = "hybrid"        # mamba2 backbone + shared attention blocks
+    HYBRID_MOE = "hybrid_moe"  # mamba2 / attention mixers by layer_pattern, each + MoE
     ENC_DEC = "enc_dec"      # whisper-style encoder-decoder
     VLM = "vlm"              # decoder-only w/ vision-patch stub frontend
     AUDIO = "audio"          # alias for enc-dec with audio stub frontend
@@ -40,6 +40,9 @@ class MoEConfig:
     capacity_factor: float = 1.25
     # Experts padded so the expert axis is shardable over the model axis.
     n_experts_padded: int = 0
+    # Width of a SwiGLU shared expert that every token also goes through,
+    # added to the routed sum (0: none).
+    shared_d_ff: int = 0
 
     def __post_init__(self):
         if self.n_experts_padded == 0:
@@ -86,6 +89,26 @@ class ArchConfig:
     norm_eps: float = 1e-5
     # Whether the arch supports 500k contexts (sub-quadratic path).
     subquadratic: bool = False
+    # hybrid_moe: one letter a layer, M (mamba2 mixer) or A (attention
+    # mixer), each followed by the MoE MLP; a string, so the config hashes.
+    layer_pattern: str = ""
+    # False: no positional embedding in attention (NoPE).
+    rope: bool = True
+    # granite's scalar multipliers: the embedding is multiplied by
+    # ``embedding_multiplier``, attention scores by ``attention_multiplier``
+    # (None: 1/sqrt(hd)), each block's output by ``residual_multiplier``
+    # before its residual add, and the logits divided by ``logits_scaling``.
+    embedding_multiplier: float = 1.0
+    attention_multiplier: Optional[float] = None
+    residual_multiplier: float = 1.0
+    logits_scaling: float = 1.0
+
+    def __post_init__(self):
+        if self.family == Family.HYBRID_MOE and (
+                len(self.layer_pattern) != self.n_layers
+                or set(self.layer_pattern) - set("MA")):
+            raise ValueError(f"layer_pattern {self.layer_pattern!r} must hold one M or A "
+                             f"for each of the {self.n_layers} layers")
 
     @property
     def hd(self) -> int:
@@ -99,6 +122,16 @@ class ArchConfig:
     def d_inner(self) -> int:
         assert self.ssm is not None
         return self.ssm.expand * self.d_model
+
+    @property
+    def mamba_layers(self) -> Tuple[int, ...]:
+        """hybrid_moe: the indices of the mamba2 layers in ``layer_pattern``."""
+        return tuple(i for i, c in enumerate(self.layer_pattern) if c == "M")
+
+    @property
+    def attn_layers(self) -> Tuple[int, ...]:
+        """hybrid_moe: the indices of the attention layers."""
+        return tuple(i for i, c in enumerate(self.layer_pattern) if c == "A")
 
     def param_count(self) -> int:
         """Approximate parameter count N (for 6ND model FLOPs)."""
@@ -131,6 +164,13 @@ class ArchConfig:
             per = d * (2 * di + 2 * n + nh) + di * self.ssm.d_conv + di * d
             total += L * per
             total += attn + 3 * d * self.d_ff  # shared block (attn + SwiGLU)
+        elif self.family == Family.HYBRID_MOE:
+            di, n = self.d_inner, self.ssm.d_state
+            nh = di // self.ssm.head_dim
+            mamba = d * (2 * di + 2 * n + nh) + di * self.ssm.d_conv + di * d
+            moe = self.moe.n_experts * mlp + d * self.moe.n_experts \
+                + 3 * d * self.moe.shared_d_ff
+            total += len(self.mamba_layers) * mamba + len(self.attn_layers) * attn + L * moe
         elif self.family in (Family.ENC_DEC, Family.AUDIO):
             total += L * (attn + mlp)            # decoder self-attn + mlp
             total += L * attn                    # decoder cross-attn
@@ -139,15 +179,10 @@ class ArchConfig:
 
     def active_param_count(self) -> int:
         """Active parameters per token (MoE: only routed experts)."""
-        if self.family != Family.MOE:
+        if self.family not in (Family.MOE, Family.HYBRID_MOE):
             return self.param_count()
-        assert self.moe
-        dense_like = dataclasses.replace(self, family=Family.DENSE, moe=None)
-        base = dense_like.param_count()
-        # replace the dense MLP with top_k experts
-        L, d = self.n_layers, self.d_model
-        mlp = (3 if self.mlp == MLPKind.GATED_SILU else 2) * d * self.d_ff
-        return base - L * mlp + L * (self.moe.top_k * mlp + d * self.moe.n_experts)
+        mlp = (3 if self.mlp == MLPKind.GATED_SILU else 2) * self.d_model * self.d_ff
+        return self.param_count() - self.n_layers * (self.moe.n_experts - self.moe.top_k) * mlp
 
 
 # ---------------------------------------------------------------------------

@@ -2,9 +2,11 @@
 backbones without their frontend stub), the MOE family (granite-moe,
 phi3.5-moe: the dense decoder with a mixture-of-experts MLP), the SSM
 family (falcon-mamba: mamba1 layers), the HYBRID family (zamba2: a
-mamba2 backbone with one shared attention+MLP block) and the ENC_DEC /
-AUDIO family (whisper: an encoder over stub frame embeddings and a
-decoder with cross-attention).
+mamba2 backbone with one shared attention+MLP block), the HYBRID_MOE
+family (granite-4.0-h: mamba2 and attention mixers by a per-layer pattern,
+each followed by a MoE MLP with a shared expert) and the ENC_DEC / AUDIO
+family (whisper: an encoder over stub frame embeddings and a decoder with
+cross-attention).
 
 Three modes share one code path per family:
   * train    — full-sequence forward, no cache;
@@ -96,9 +98,14 @@ def attention_block(
     use_rope: bool = True,
     kv_cache: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
     cross_states: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+    out_scale: float = 1.0,
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Residual attention block: self-attention over ``x``, or
     cross-attention when ``cross_states`` (B, Sk, d) gives k/v.
+    ``use_rope=False`` leaves q and k unturned in every mode (NoPE);
+    ``scale`` is the scores' factor (None: 1/sqrt(hd)); the block's output
+    is multiplied by ``out_scale`` before the residual add.
 
     decode (self-attention only): ``kv_cache`` = (k, v, pos), k/v
     (B, S_max, KV, hd) views of one layer of the pooled cache.  The new
@@ -125,12 +132,13 @@ def attention_block(
         kc, vc, pos = kv_cache
         per_slot = pos.ndim == 1
         steps = torch.arange(S, device=x.device)
-        rope_pos = (pos[:, None] if per_slot else pos) + steps
-        q = rotary(q, rope_pos, cfg.rope_theta)
-        k = rotary(k, rope_pos, cfg.rope_theta)
+        if use_rope:
+            rope_pos = (pos[:, None] if per_slot else pos) + steps
+            q = rotary(q, rope_pos, cfg.rope_theta)
+            k = rotary(k, rope_pos, cfg.rope_theta)
         _write_cache(kc, k, pos, steps)
         _write_cache(vc, v, pos, steps)
-        out = _attend_cache(q, kc, vc, ctx, kv_len=pos + S)
+        out = _attend_cache(q, kc, vc, ctx, kv_len=pos + S, scale=scale)
         new_kv = (kc, vc)
     else:
         if use_rope:
@@ -145,13 +153,16 @@ def attention_block(
             q = ctx.act(q, ctx.dp, ctx.tp, None, None)
             k = ctx.act(k, ctx.dp, None, None, None)
             v = ctx.act(v, ctx.dp, None, None, None)
-            out = _attend_seq_parallel(q, k, v, causal, ctx)
+            out = _attend_seq_parallel(q, k, v, causal, ctx, scale)
             out = ctx.act(out, ctx.dp, ctx.tp, None, None)
         else:
             q = ctx.act(q, ctx.dp, None, ctx.heads, None)
-            out = _attend(q, k, v, causal, ctx)
+            out = _attend(q, k, v, causal, ctx, scale)
         new_kv = (k, v)
-    return x + ctx.res(_out_proj(out, p["wo"])), new_kv
+    out = _out_proj(out, p["wo"])
+    if out_scale != 1.0:
+        out = out * out_scale
+    return x + ctx.res(out), new_kv
 
 
 def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
@@ -163,7 +174,7 @@ def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     return out.reshape(*out.shape[:2], -1) @ wo.reshape(-1, wo.shape[-1])
 
 
-def _attend_cache(q, kc, vc, ctx: ShardCtx, kv_len=None) -> torch.Tensor:
+def _attend_cache(q, kc, vc, ctx: ShardCtx, kv_len=None, scale=None) -> torch.Tensor:
     """Decode attention over a cache (self or cross), the JAX package's
     head-dim-sharded constraint on the cache: q follows k onto the head
     dim (its heads whole), and the output goes back to the heads' layout
@@ -180,9 +191,9 @@ def _attend_cache(q, kc, vc, ctx: ShardCtx, kv_len=None) -> torch.Tensor:
     if ctx.attention_impl == "kernel" and not _head_dim_sharded(kc):
         from repro_torch.kernels.ops import decode_attention
 
-        out = decode_attention(q, kc, vc, kv_len)
+        out = decode_attention(q, kc, vc, kv_len, scale)
     else:
-        out = attention_reference(q, kc, vc, causal=False, kv_len=kv_len)
+        out = attention_reference(q, kc, vc, causal=False, kv_len=kv_len, scale=scale)
     return ctx.act(out, ctx.dp, None, ctx.heads, None)
 
 
@@ -191,15 +202,16 @@ def _head_dim_sharded(t: torch.Tensor) -> bool:
         isinstance(p, Shard) and p.dim == t.ndim - 1 for p in t.placements)
 
 
-def _attention_core(q, k, v, causal, ctx):
+def _attention_core(q, k, v, causal, ctx, scale=None):
     if ctx.attention_impl == "kernel":
         from repro_torch.kernels.ops import flash_attention
 
-        return flash_attention(q, k, v, causal=causal).to(q.dtype)
-    return attention_chunked(q, k, v, causal=causal, remat_body=ctx.remat_chunk_attn)
+        return flash_attention(q, k, v, causal=causal, scale=scale).to(q.dtype)
+    return attention_chunked(q, k, v, causal=causal, remat_body=ctx.remat_chunk_attn,
+                             scale=scale)
 
 
-def _attend(q, k, v, causal: bool, ctx: ShardCtx) -> torch.Tensor:
+def _attend(q, k, v, causal: bool, ctx: ShardCtx, scale=None) -> torch.Tensor:
     """Prefill / train attention.  On DTensors each mesh dim has q, k and v
     all replicated, batch-sharded together or heads-sharded together (the
     kernel's rules), or the q heads sharded with the kv heads replicated.
@@ -218,7 +230,7 @@ def _attend(q, k, v, causal: bool, ctx: ShardCtx) -> torch.Tensor:
     ``G``, else one kv head per q head.  Their gradient is a partial sum
     over the model axis."""
     if not isinstance(q, DTensor):
-        return _attention_core(q, k, v, causal, ctx)
+        return _attention_core(q, k, v, causal, ctx, scale)
     mesh = q.device_mesh
     names = mesh.mesh_dim_names
     m = names.index(ctx.tp) if ctx.tp in names else None
@@ -230,7 +242,7 @@ def _attend(q, k, v, causal: bool, ctx: ShardCtx) -> torch.Tensor:
     sliced = m is not None and q.placements[m] == Shard(2) \
         and k.placements[m] != Shard(2)
     if ctx.attention_impl == "kernel" and not sliced:
-        return _attention_core(q, k, v, causal, ctx)
+        return _attention_core(q, k, v, causal, ctx, scale)
     H, KV = q.shape[2], k.shape[2]
     G = H // KV
     Hl = H // mesh.size(m) if sliced else H
@@ -244,13 +256,13 @@ def _attend(q, k, v, causal: bool, ctx: ShardCtx) -> torch.Tensor:
             else:
                 idx = (first + torch.arange(Hl, device=kl.device)) // G
             kl, vl = kl.index_select(2, idx), vl.index_select(2, idx)
-        return _attention_core(ql, kl, vl, causal, ctx)
+        return _attention_core(ql, kl, vl, causal, ctx, scale)
 
     return per_shard(local, out=(q.placements,),
                      ins=(q.placements, k.placements, v.placements), mesh=mesh)(q, k, v)
 
 
-def _attend_seq_parallel(q, k, v, causal: bool, ctx: ShardCtx) -> torch.Tensor:
+def _attend_seq_parallel(q, k, v, causal: bool, ctx: ShardCtx, scale=None) -> torch.Tensor:
     """Attention of a sequence-sharded q (its rows split over the model
     axis) against k and v replicated there.  The plain route is the masked
     full product, as the JAX package's sequence-parallel path (no
@@ -260,9 +272,9 @@ def _attend_seq_parallel(q, k, v, causal: bool, ctx: ShardCtx) -> torch.Tensor:
     FLOP formula counts those rows against every key, as the plain route's
     product does, so both routes count the same."""
     if ctx.attention_impl != "kernel":
-        return attention_reference(q, k, v, causal=causal)
+        return attention_reference(q, k, v, causal=causal, scale=scale)
     if not isinstance(q, DTensor):
-        return _attention_core(q, k, v, causal, ctx)
+        return _attention_core(q, k, v, causal, ctx, scale)
     from repro_torch.kernels.ops import flash_attention
 
     mesh = q.device_mesh
@@ -275,8 +287,8 @@ def _attend_seq_parallel(q, k, v, causal: bool, ctx: ShardCtx) -> torch.Tensor:
     first = local_shape_and_offset(q.shape, mesh, q.placements)[1][1]
 
     def local(ql, kl, vl):
-        return flash_attention(ql, kl, vl, causal=causal,
-                               q_offset=first if causal else 0).to(ql.dtype)
+        return flash_attention(ql, kl, vl, causal=causal, q_offset=first if causal else 0,
+                               scale=scale).to(ql.dtype)
 
     return per_shard(local, out=(q.placements,),
                      ins=(q.placements, k.placements, v.placements), mesh=mesh)(q, k, v)
@@ -471,6 +483,75 @@ def _hybrid_stack(params, h, cfg, ctx, cache, *, mode, with_aux, remat=False):
     return h, new_cache, {}
 
 
+def _hybrid_moe_stack(params, h, cfg, ctx, cache, *, mode, with_aux, remat=False):
+    """granite-4.0-h: ``cfg.layer_pattern`` names each layer's mixer, a
+    mamba2 block (M) or a GQA attention block (A, rotary only where
+    ``cfg.rope``, scores scaled by ``cfg.attention_multiplier``); every
+    mixer is followed by the MoE MLP with its shared expert.  Both blocks'
+    outputs are multiplied by ``cfg.residual_multiplier`` before their
+    residual adds.  The weights are stacked per kind (``mamba``, ``attn``:
+    the M and A layers in order; ``moe``: every layer), and so is the
+    cache: conv and SSM state lanes for the M layers only, K/V lanes for
+    the A layers only.  While ``TRACER`` is on, each mamba2 mixer records a
+    ``layer.mamba`` span (``tokens``: the tokens it mixes) and each
+    attention mixer a ``layer.attn`` span around its enqueue."""
+    pos0 = cache["pos"] if cache is not None else None
+    rm = cfg.residual_multiplier
+
+    def m_layer(h, lp, lc):
+        return mamba2_block(lp, h, cfg, ctx, cache=lc, return_state=mode == PREFILL,
+                            out_scale=rm)
+
+    def a_layer(h, lp, kv):
+        return attention_block(lp, h, cfg, ctx, mode=mode, use_rope=cfg.rope, kv_cache=kv,
+                               scale=cfg.attention_multiplier, out_scale=rm)
+
+    def moe_layer(h, lp):
+        y, aux = moe_mlp(lp, h, cfg, ctx, with_aux=with_aux)
+        if rm != 1.0:
+            y = y * rm
+        return ctx.res(h + y), aux
+
+    m_layer, a_layer, moe_layer = (maybe_remat(f, remat) for f in (m_layer, a_layer, moe_layer))
+    mambas = _unstack(params["mamba"], len(cfg.mamba_layers))
+    attns = _unstack(params["attn"], len(cfg.attn_layers))
+    moes = _unstack(params["moe"], cfg.n_layers)
+    states, ks, vs, auxes = [], [], [], []
+    for i, kind in enumerate(cfg.layer_pattern):
+        on = TRACER.on
+        if kind == "M":
+            j = len(states)
+            lc = {key: cache[key][j] for key in STATE_KEYS} if cache is not None else None
+            if on:
+                TRACER.open("layer.mamba", tokens=h.shape[0] * h.shape[1])
+            h, st = m_layer(h, mambas[j], lc)
+            states.append(st)
+        else:
+            j = len(ks)
+            kv = (cache["k"][j], cache["v"][j], pos0) if cache is not None else None
+            if on:
+                TRACER.open("layer.attn")
+            h, (k, v) = a_layer(h, attns[j], kv)
+            ks.append(k)
+            vs.append(v)
+        if on:
+            TRACER.close()
+        h, aux = moe_layer(ctx.res(h), moes[i])
+        auxes.append(aux)
+    new_cache = None
+    if mode == PREFILL:
+        new_cache = {key: torch.stack([st[key] for st in states]) for key in STATE_KEYS}
+        new_cache.update(k=torch.stack(ks), v=torch.stack(vs),
+                         pos=torch.tensor(h.shape[1], dtype=torch.int32, device=h.device))
+    elif mode == DECODE:
+        # every lane was updated in place
+        new_cache = dict(cache, pos=pos0 + 1)
+    aux = {}
+    if with_aux:
+        aux = {key: torch.stack([a[key] for a in auxes]).mean() for key in auxes[0]}
+    return h, new_cache, aux
+
+
 def encoder(params: Dict, cfg: ArchConfig, enc_embeds: torch.Tensor, *,
             ctx: ShardCtx = NOSHARD, remat: bool = False) -> torch.Tensor:
     """whisper's encoder over stub frame embeddings (B, enc_len, d):
@@ -551,8 +632,8 @@ def _encdec_stack(params, h, cfg, ctx, cache, *, mode, with_aux, remat=False,
 
 _STACKS = {Family.DENSE: _dense_stack, Family.VLM: _dense_stack,
            Family.MOE: _dense_stack, Family.SSM: _ssm_stack,
-           Family.HYBRID: _hybrid_stack, Family.ENC_DEC: _encdec_stack,
-           Family.AUDIO: _encdec_stack}
+           Family.HYBRID: _hybrid_stack, Family.HYBRID_MOE: _hybrid_moe_stack,
+           Family.ENC_DEC: _encdec_stack, Family.AUDIO: _encdec_stack}
 
 
 def backbone(params: Dict, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *,
@@ -577,6 +658,8 @@ def backbone(params: Dict, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *,
             h = _embed(ctx.gather(params["embed"]), batch["tokens"])
         else:
             h = params["embed"][batch["tokens"]]
+        if cfg.embedding_multiplier != 1.0:
+            h = h * cfg.embedding_multiplier
         h = ctx.res(h)
         h, new_cache, aux = _STACKS[cfg.family](params, h, cfg, ctx, cache, mode=mode,
                                                 with_aux=with_aux, remat=remat, **extra)
@@ -610,11 +693,14 @@ def _embed(table: DTensor, tokens: torch.Tensor) -> DTensor:
 def head(params: Dict, cfg: ArchConfig, h: torch.Tensor,
          ctx: ShardCtx = NOSHARD) -> torch.Tensor:
     """Logits (..., Vp); the tied embedding or the separate lm_head,
-    sharded over the vocab as ``repro.models.model.forward``'s logits."""
+    sharded over the vocab as ``repro.models.model.forward``'s logits,
+    divided by ``cfg.logits_scaling``."""
     w = ctx.gather(params["embed"]).T if cfg.tie_embeddings \
         else ctx.gather(params["lm_head"])
     with plain_tensors_replicated() if isinstance(h, DTensor) else contextlib.nullcontext():
         logits = h @ w
+        if cfg.logits_scaling != 1.0:
+            logits = logits / cfg.logits_scaling
     return ctx.act(logits, ctx.dp, *([None] * (h.ndim - 2)), ctx.tp)
 
 
@@ -642,26 +728,17 @@ def cache_schema(cfg: ArchConfig, batch: int, max_len: int, enc_len: int = 0) ->
     L, KV, hd = cfg.n_layers, cfg.n_kv_heads, cfg.hd
     pos = PS((), (), init="zeros", dtype=torch.int32)
     if cfg.family == Family.HYBRID:
-        di, n, K = cfg.d_inner, cfg.ssm.d_state, cfg.ssm.d_conv
-        nh = di // cfg.ssm.head_dim
         G = L // cfg.shared_attn_period
         shared_kv = PS((G, batch, max_len, KV, hd),
                        ("groups", "batch", "seq", "heads_kv", "hd_cache"),
                        init="zeros")
-        return {
-            "conv_x": PS((L, batch, K - 1, di),
-                         ("layers", "batch", "conv", "d_inner"), init="zeros"),
-            "conv_B": PS((L, batch, K - 1, n),
-                         ("layers", "batch", "conv", "state"), init="zeros"),
-            "conv_C": PS((L, batch, K - 1, n),
-                         ("layers", "batch", "conv", "state"), init="zeros"),
-            "ssm": PS((L, batch, nh, cfg.ssm.head_dim, n),
-                      ("layers", "batch", "ssm_heads", "hd", "state"),
-                      init="zeros", dtype=torch.float32),
-            "shared_k": shared_kv,
-            "shared_v": shared_kv,
-            "pos": pos,
-        }
+        return {**_mamba2_state_schema(cfg, L, batch), "shared_k": shared_kv,
+                "shared_v": shared_kv, "pos": pos}
+    if cfg.family == Family.HYBRID_MOE:
+        kv = PS((len(cfg.attn_layers), batch, max_len, KV, hd),
+                ("layers", "batch", "seq", "heads_kv", "hd_cache"), init="zeros")
+        return {**_mamba2_state_schema(cfg, len(cfg.mamba_layers), batch),
+                "k": kv, "v": kv, "pos": pos}
     if cfg.family == Family.SSM:
         di, n, K = cfg.d_inner, cfg.ssm.d_state, cfg.ssm.d_conv
         return {
@@ -679,3 +756,21 @@ def cache_schema(cfg: ArchConfig, batch: int, max_len: int, enc_len: int = 0) ->
                    ("layers", "batch", "seq", "heads_kv", "hd_cache"), init="zeros")
         return {"k": kv, "v": kv, "cross_k": cross, "cross_v": cross, "pos": pos}
     return {"k": kv, "v": kv, "pos": pos}
+
+
+def _mamba2_state_schema(cfg: ArchConfig, L: int, batch: int) -> Dict:
+    """The decode state lanes of ``L`` mamba2 layers: the last K-1 pre-conv
+    inputs of x, B and C, and the float32 SSM state."""
+    di, n, K = cfg.d_inner, cfg.ssm.d_state, cfg.ssm.d_conv
+    nh = di // cfg.ssm.head_dim
+    return {
+        "conv_x": PS((L, batch, K - 1, di),
+                     ("layers", "batch", "conv", "d_inner"), init="zeros"),
+        "conv_B": PS((L, batch, K - 1, n),
+                     ("layers", "batch", "conv", "state"), init="zeros"),
+        "conv_C": PS((L, batch, K - 1, n),
+                     ("layers", "batch", "conv", "state"), init="zeros"),
+        "ssm": PS((L, batch, nh, cfg.ssm.head_dim, n),
+                  ("layers", "batch", "ssm_heads", "hd", "state"),
+                  init="zeros", dtype=torch.float32),
+    }

@@ -5,7 +5,9 @@ softmax, sorted by expert into a fixed-capacity buffer (Ep, C, d), run
 through the experts as batched products, and combined back with their
 gates.  Tokens beyond an expert's capacity are dropped (their residual
 passes through).  Padded experts (granite: 40 -> 48) get -1e30 logits:
-probability 0, never chosen.
+probability 0, never chosen.  With ``MoEConfig.shared_d_ff`` (granite-4.0-h)
+every token also goes through one SwiGLU shared expert on the same normed
+input, whose output is added to the routed sum.
 
 Where eager PyTorch on the card would otherwise decide differently from
 the reference, or differently from run to run:
@@ -109,6 +111,11 @@ def _experts(buf: torch.Tensor, p: Dict, cfg: ArchConfig) -> torch.Tensor:
     return h @ p["w_down"]
 
 
+def _shared(xn: torch.Tensor, p: Dict) -> torch.Tensor:
+    """The shared expert: silu(xn Sg) * (xn Su), then Sd."""
+    return (F.silu(xn @ p["shared_gate"]) * (xn @ p["shared_up"])) @ p["shared_down"]
+
+
 def _serial_sum(c: torch.Tensor) -> torch.Tensor:
     """Sum (N, k, d) over k as k - 1 float32 adds in index order."""
     acc = c[:, 0].float()
@@ -144,7 +151,8 @@ def moe_mlp(
 
     While ``TRACER`` is on, every layout records four spans of the host's
     enqueue: ``moe.route`` (the norm and the router), ``moe.dispatch``,
-    ``moe.experts`` and ``moe.combine``.
+    ``moe.experts`` and ``moe.combine``, and a fifth, ``moe.shared``, for
+    the shared expert where there is one.
     """
     if ctx.enabled and isinstance(x, DTensor):
         return _moe_mlp_sharded(ctx.gather(p), x, cfg, ctx, with_aux=with_aux)
@@ -181,6 +189,10 @@ def moe_mlp(
     slot[order] = torch.arange(T * k, device=x.device)
     slots = torch.sort(slot.view(T, k), dim=-1).values
     yf = _serial_sum(contrib[slots]).to(x.dtype)
+    if moe.shared_d_ff:
+        if on:
+            tr.then("moe.shared")
+        yf = yf + _shared(xf, p)
     if on:
         tr.close()
     aux = _aux(logits, probs, idx, keep, Ep) if with_aux else {}
@@ -231,6 +243,10 @@ def _moe_mlp_rows(
                               gathered * gr[b].reshape(-1)[:, None], 0.0)
         ys.append(_serial_sum(contrib.view(S, k, d)).to(out_buf.dtype))
     y = torch.stack(ys)
+    if moe.shared_d_ff:
+        if on:
+            tr.then("moe.shared")
+        y = y + _shared(xn, p)
     if on:
         tr.close()
     aux = {}
@@ -262,6 +278,8 @@ def _moe_mlp_sharded(p, x, cfg, ctx, *, with_aux):
     each on its data shard.  Capacity as in ``moe_mlp`` /
     ``_moe_mlp_rows``."""
     moe = cfg.moe
+    if moe.shared_d_ff:
+        raise NotImplementedError("a shared expert on a mesh")
     B, S, d = x.shape
     Ep, k = moe.n_experts_padded, moe.top_k
     mesh = x.device_mesh

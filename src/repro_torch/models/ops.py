@@ -164,6 +164,7 @@ def attention_reference(
     causal: bool,
     q_offset: int = 0,
     kv_len: Optional[Union[int, torch.Tensor]] = None,
+    scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Plain softmax attention with GQA head grouping, math in float32.
 
@@ -172,12 +173,14 @@ def attention_reference(
     ``kv_len``: optional number of valid kv entries (cache decode); a
     scalar, or a (B,) vector for continuous-batching decode where every
     slot sits at its own sequence position.
+    ``scale``: the scores' factor; None divides them by sqrt(hd).
     """
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     G = H // KV
     qg = q.reshape(B, Sq, KV, G, hd).float()
-    scores = torch.einsum("bqkgh,bskh->bkgqs", qg, k.float()) / math.sqrt(hd)
+    scores = torch.einsum("bqkgh,bskh->bkgqs", qg, k.float())
+    scores = scores / math.sqrt(hd) if scale is None else scores * scale
     mask = None  # broadcastable to (B, 1, 1, Sq, Sk)
     if causal:
         qpos = q_offset + torch.arange(Sq, device=q.device)
@@ -203,6 +206,7 @@ def attention_chunked(
     causal: bool,
     q_chunk: int = 512,
     remat_body: bool = False,
+    scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Query-chunked attention: O(q_chunk * Sk) live scores.
 
@@ -214,9 +218,9 @@ def attention_chunked(
     """
     Sq = q.shape[1]
     if Sq <= q_chunk:
-        return attention_reference(q, k, v, causal=causal)
+        return attention_reference(q, k, v, causal=causal, scale=scale)
     chunk = maybe_remat(attention_reference, remat_body)
-    outs = [chunk(q[:, i:i + q_chunk], k, v, causal=causal, q_offset=i)
+    outs = [chunk(q[:, i:i + q_chunk], k, v, causal=causal, q_offset=i, scale=scale)
             for i in range(0, Sq, q_chunk)]
     return torch.cat(outs, dim=1)
 

@@ -72,6 +72,11 @@ def _moe_schema(cfg: ArchConfig, L: int) -> Dict:
         out["w_gate"] = PS(
             (L, Ep, d, ff), ("layers", "experts", "d_model", "d_ff")
         )
+    sff = cfg.moe.shared_d_ff
+    if sff:
+        out["shared_gate"] = PS((L, d, sff), ("layers", "d_model", "d_ff"))
+        out["shared_up"] = PS((L, d, sff), ("layers", "d_model", "d_ff"))
+        out["shared_down"] = PS((L, sff, d), ("layers", "d_ff", "d_model"))
     return out
 
 
@@ -142,6 +147,12 @@ def build_schema(cfg: ArchConfig) -> Dict:
         }
     elif cfg.family == Family.SSM:
         schema["layers"] = _mamba1_schema(cfg, L)
+    elif cfg.family == Family.HYBRID_MOE:
+        # per-kind stacks: the mamba2 mixers, the attention mixers (each in
+        # ``layer_pattern`` order) and every layer's MoE
+        schema["mamba"] = _mamba2_schema(cfg, len(cfg.mamba_layers))
+        schema["attn"] = _attn_schema(cfg, len(cfg.attn_layers))
+        schema["moe"] = _moe_schema(cfg, L)
     elif cfg.family == Family.HYBRID:
         schema["layers"] = _mamba2_schema(cfg, L)
         schema["shared"] = {

@@ -27,6 +27,7 @@ import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.launch.mesh import per_shard, redistribute, spec_to_placements
+from repro_torch.obs.trace import TRACER
 
 from .config import ArchConfig
 from .ops import ShardCtx, rms_norm
@@ -296,9 +297,11 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
 
 def mamba2_block(p: Dict, x: torch.Tensor, cfg: ArchConfig, ctx: ShardCtx,
-                 cache: Optional[Dict] = None,
-                 return_state: bool = False) -> Tuple[torch.Tensor, Optional[Dict]]:
-    """Mamba2 block (zamba2 backbone layer).  x: (B, S, d).
+                 cache: Optional[Dict] = None, return_state: bool = False,
+                 out_scale: float = 1.0) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """Mamba2 block (zamba2's backbone layer, granite-4.0-h's mamba2
+    mixer).  x: (B, S, d).  The block's output is multiplied by
+    ``out_scale`` before the residual add.
 
     Prefill with ``return_state``: also returns the decode state, the last
     K-1 pre-conv inputs (``conv_x``, ``conv_B``, ``conv_C``) and the final
@@ -306,6 +309,9 @@ def mamba2_block(p: Dict, x: torch.Tensor, cfg: ArchConfig, ctx: ShardCtx,
     one-token recurrence; the cache's tensors (views of one layer of the
     pooled cache) are updated IN PLACE, where the JAX package returns new
     arrays, and returned.
+
+    While ``TRACER`` is on, the full-sequence path records an ``ssm.scan``
+    span around the scan's enqueue.
     """
     ssm = cfg.ssm
     di, n, hp = cfg.d_inner, ssm.d_state, ssm.head_dim
@@ -330,6 +336,9 @@ def mamba2_block(p: Dict, x: torch.Tensor, cfg: ArchConfig, ctx: ShardCtx,
         A = ctx.act(A, heads)
         xh = xc.reshape(*xc.shape[:2], nh, hp)
         args = (xh.float(), dt.float(), A, Bcv.float(), Ccv.float())
+        on = TRACER.on
+        if on:
+            TRACER.open("ssm.scan")
         if ctx.ssm_impl == "kernel":
             from repro_torch.kernels.ops import ssd_scan
 
@@ -337,6 +346,8 @@ def mamba2_block(p: Dict, x: torch.Tensor, cfg: ArchConfig, ctx: ShardCtx,
         else:
             scan = _ssd_chunked_sharded if isinstance(xh, DTensor) else ssd_chunked
             y, h_fin = scan(*args, ssm.chunk)
+        if on:
+            TRACER.close()
         y = y.to(x.dtype) + xh * p["D"][:, None]
         y = y.reshape(*xc.shape[:2], di)
         y = rms_norm(y * F.silu(z), p["out_norm"], cfg.norm_eps)
@@ -344,7 +355,10 @@ def mamba2_block(p: Dict, x: torch.Tensor, cfg: ArchConfig, ctx: ShardCtx,
         if return_state:
             state = {"conv_x": xi[:, -(K - 1):, :], "conv_B": Bc[:, -(K - 1):, :],
                      "conv_C": Cc[:, -(K - 1):, :], "ssm": h_fin}
-        return x + ctx.res(y @ p["w_out"]), state
+        out = y @ p["w_out"]
+        if out_scale != 1.0:
+            out = out * out_scale
+        return x + ctx.res(out), state
 
     # --- decode ---------------------------------------------------------------
     xc, conv_x = conv_step(xi[:, 0], cache["conv_x"], p["conv_x_w"], p["conv_x_b"])
@@ -362,6 +376,8 @@ def mamba2_block(p: Dict, x: torch.Tensor, cfg: ArchConfig, ctx: ShardCtx,
     y = y.reshape(-1, di)
     y = rms_norm(y * F.silu(z[:, 0]), p["out_norm"], cfg.norm_eps)
     out = ctx.batch(y @ p["w_out"])
+    if out_scale != 1.0:
+        out = out * out_scale
     for key, new in (("conv_x", conv_x), ("conv_B", conv_B), ("conv_C", conv_C),
                      ("ssm", hs)):
         cache[key].copy_(new)

@@ -111,6 +111,27 @@ def test_bf16_tensor_core_route_shapes(card, B, Sq, Sk, H, KV, causal):
     _flash_check(card, B, Sq, Sk, H, KV, 128, causal, torch.bfloat16, seed=Sq + Sk)
 
 
+@pytest.mark.parametrize("S", [2048, 1000])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_takes_the_scale_on_card(card, S, dtype):
+    """granite-4.0-h-small's NoPE attention: 32/8 heads of 128, causal,
+    scores times 1/128 (not 1/sqrt(128)); q and k drawn so the scores have
+    unit variance.  The kernel matches the plain version at that scale and
+    differs from its own default-scale output."""
+    g = torch.Generator(device=card).manual_seed(S)
+    w = 128 ** 0.25
+    q = (w * torch.randn(1, S, 32, 128, generator=g, device=card)).to(dtype)
+    k = (w * torch.randn(1, S, 8, 128, generator=g, device=card)).to(dtype)
+    v = torch.randn(1, S, 8, 128, generator=g, device=card).to(dtype)
+    out = flash_attention(q, k, v, causal=True, scale=1 / 128)
+    torch.cuda.synchronize()
+    ref = flash_attention_plain(q, k, v, causal=True, scale=1 / 128)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+    default = flash_attention(q, k, v, causal=True)
+    assert float((default.float() - out.float()).abs().max()) > 0.1
+
+
 def test_kernel_reads_strided_views(card):
     """q/k/v as views into a fused (B, S, H + 2 KV, hd) projection."""
     g = torch.Generator(device=card).manual_seed(0)
@@ -181,6 +202,26 @@ def test_decode_kernel_matches_plain_on_card(card, B, Sk, H, KV, hd, lens, dtype
     torch.cuda.synchronize()
     assert LAUNCHES["decode_attention"] == 1
     _decode_close(out, decode_attention_plain(q, k, v, kv_len))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_takes_the_scale_on_card(card, dtype):
+    """granite-4.0-h-small's pool shape (32/8 heads of 128, lanes of 12,800,
+    ragged live lengths) with scores times 1/128: the kernel matches the
+    plain version at that scale and differs from its default-scale output."""
+    B, Sk = 32, 12800
+    g = torch.Generator(device=card).manual_seed(128)
+    w = 128 ** 0.25
+    q = (w * torch.randn(B, 1, 32, 128, generator=g, device=card)).to(dtype)
+    k = (w * torch.randn(B, Sk, 8, 128, generator=g, device=card)).to(dtype)
+    v = torch.randn(B, Sk, 8, 128, generator=g, device=card).to(dtype)
+    kv_len = torch.randint(1, Sk + 1, (B,), generator=g, device=card, dtype=torch.int32)
+    kv_len[0], kv_len[-1] = 1, Sk
+    out = decode_attention(q, k, v, kv_len, scale=1 / 128)
+    torch.cuda.synchronize()
+    _decode_close(out, decode_attention_plain(q, k, v, kv_len, scale=1 / 128))
+    default = decode_attention(q, k, v, kv_len)
+    assert float((default.float() - out.float()).abs().max()) > 0.1
 
 
 def test_decode_kernel_reads_only_the_live_prefix(card):
@@ -332,6 +373,18 @@ def test_ssd_kernel_matches_plain_on_card(card, B, S, nh, hp, n, chunk, dtype):
     assert LAUNCHES["ssd_scan"] == 1
     assert all(t.dtype == torch.float32 for t in out)
     _ssd_close(out, ssd_scan_plain(x, dt, A, Bc, Cc, chunk=chunk), dtype)
+
+
+@pytest.mark.parametrize("S", [2048, 3000])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_at_granite_4_h_shape_on_card(card, S, dtype):
+    """granite-4.0-h-small's mixer: 128 heads of 64, d_state 128, chunk
+    256; 2,048 tokens and a ragged 3,000."""
+    x, dt, A, Bc, Cc = _ssd_inputs(card, 1, S, 128, 64, 128, seed=S)
+    x, dt, Bc, Cc = (t.to(dtype) for t in (x, dt, Bc, Cc))
+    out = ssd_scan(x, dt, A, Bc, Cc, chunk=256)
+    torch.cuda.synchronize()
+    _ssd_close(out, ssd_scan_plain(x, dt, A, Bc, Cc, chunk=256), dtype)
 
 
 def test_ssd_kernel_reads_strided_views(card):

@@ -309,6 +309,16 @@ def test_ssd_plain_matches_sequential_oracle(B, S, nh, hp, n, chunk):
     np.testing.assert_allclose(h.numpy(), hr.numpy(), atol=1e-4, rtol=1e-4)
 
 
+def test_ssd_plain_matches_sequential_oracle_at_granite_4_h_ratios():
+    """granite-4.0-h-small's scan cut in width: a state twice the head
+    dim, many heads, several chunks with a ragged last one."""
+    args = [torch.from_numpy(a) for a in _ssd_inputs(1, 300, 16, 8, 16, seed=11)]
+    y, h = ssd_scan_plain(*args, chunk=64)
+    yr, hr = ssd_ref(*args)
+    np.testing.assert_allclose(y.numpy(), yr.numpy(), atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(h.numpy(), hr.numpy(), atol=1e-4, rtol=1e-4)
+
+
 @pytest.mark.parametrize("S,chunk", [(128, 32), (100, 32), (20, 64)])
 def test_ssd_plain_matches_chunked_path(S, chunk):
     args = [torch.from_numpy(a) for a in _ssd_inputs(2, S, 4, 16, 8, seed=9)]

@@ -344,15 +344,16 @@ def _unsliced_error(cfg, dparams, batch, ctx, good_logits):
 
     orig = tm._attend
 
-    def unsliced(q, k, v, causal, ctx_):
+    def unsliced(q, k, v, causal, ctx_, scale=None):
         from torch.distributed.tensor import DTensor
         from torch.distributed.tensor.experimental import local_map
 
         mesh = q.device_mesh
-        return local_map(lambda a, b, c: tm._attention_core(a, b, c, causal, ctx_),
+        return local_map(lambda a, b, c: tm._attention_core(a, b, c, causal, ctx_, scale),
                          out_placements=(q.placements,),
                          in_placements=(q.placements, k.placements, v.placements),
-                         device_mesh=mesh)(q, k, v) if isinstance(q, DTensor) else orig(q, k, v, causal, ctx_)
+                         device_mesh=mesh)(q, k, v) if isinstance(q, DTensor) \
+            else orig(q, k, v, causal, ctx_, scale)
 
     tm._attend = unsliced
     try:
@@ -372,8 +373,8 @@ def _unshifted_error(cfg, dparams, batch, ctx, good_logits):
 
     orig = ops.flash_attention
 
-    def unshifted(q, k, v, *, causal=True, q_offset=0):
-        return orig(q, k, v, causal=causal)
+    def unshifted(q, k, v, *, causal=True, q_offset=0, scale=None):
+        return orig(q, k, v, causal=causal, scale=scale)
 
     ops.flash_attention = unshifted
     try:

@@ -123,9 +123,28 @@ def _shapes(schema, leaf_type):
     return {k: _shapes(v, leaf_type) for k, v in schema.items()}
 
 
+def _reference_fields_and_port_defaults(ours, ref):
+    """``ours`` (a port config dataclass) as a dict of the fields ``ref``
+    (the JAX package's) has, nested configs alike, and of those the port
+    adds, which must hold their defaults."""
+    shared, added = {}, {}
+    for f in dataclasses.fields(ours):
+        v = getattr(ours, f.name)
+        if not hasattr(ref, f.name):
+            added[f.name] = (v, f.default)
+        elif dataclasses.is_dataclass(v):
+            shared[f.name], more = _reference_fields_and_port_defaults(v, getattr(ref, f.name))
+            added.update({f"{f.name}.{k}": x for k, x in more.items()})
+        else:
+            shared[f.name] = v
+    return shared, added
+
+
 @pytest.mark.parametrize("name", sorted(ARCHS))
 def test_schema_and_init_shapes_match_jax(name):
-    assert dataclasses.asdict(ARCHS[name]) == dataclasses.asdict(JAX_ARCHS[name])
+    shared, added = _reference_fields_and_port_defaults(ARCHS[name], JAX_ARCHS[name])
+    assert shared == dataclasses.asdict(JAX_ARCHS[name])
+    assert all(value == default for value, default in added.values()), added
     full = _shapes(build_schema(ARCHS[name]), ParamSchema)
     assert full == _shapes(jax_build_schema(JAX_ARCHS[name]), JaxPS)
     small = reduced(ARCHS[name])
