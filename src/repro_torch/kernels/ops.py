@@ -5,13 +5,14 @@ Each kernel is a ``torch.library`` operator (``repro_torch::flash_attention``,
 implementation is the hand-written kernel, which launches or raises; its
 CPU implementation is the kernel's plain PyTorch version.  There is no
 other route: nothing here falls back from the kernel to the plain version.
-``LAUNCHES`` counts kernel launches, in the CUDA implementations and
-nowhere else.  One ``ssd_scan`` count stands for one call of the scan,
-which launches its five passes (cumsum, C.B^T, chunk states, state
-passing, chunk output) as five CUDA kernels on the current stream; one
-``decode_attention`` count for one call, which launches two (the chunks'
-partial softmax, then their combination); one ``flash_attention`` count is
-one kernel launch.
+``LAUNCHES`` counts kernel launches, in the CUDA implementations and,
+for a step captured in a CUDA graph (``serve.engine.DecodeGraph``), once
+for each replay of the calls its capture made.  One ``ssd_scan`` count
+stands for one call of the scan, which launches its five passes (cumsum,
+C.B^T, chunk states, state passing, chunk output) as five CUDA kernels on
+the current stream; one ``decode_attention`` count for one call, which
+launches two (the chunks' partial softmax, then their combination); one
+``flash_attention`` count is one kernel launch.
 
 Each operator also has a fake implementation (output shapes and dtypes)
 and a FLOP formula, so ``launch.cost`` counts a step that goes through the

@@ -11,9 +11,10 @@ from __future__ import annotations
 import functools
 import math
 from dataclasses import dataclass
-from typing import Optional, Tuple, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
+from torch._guards import detect_fake_mode
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
@@ -125,6 +126,33 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.T
     return (xf * torch.rsqrt(var + eps)).to(dt) * scale.to(dt)
 
 
+# rotary's frequencies, one tensor per (half, theta, device)
+_FREQS: Dict[Tuple[int, float, torch.device], torch.Tensor] = {}
+
+
+def rotary_freqs(half: int, theta: float, device) -> torch.Tensor:
+    """``theta ** (-i / half)`` for ``i < half``, float32, on ``device``.
+
+    Building it copies ``theta`` from the host, which synchronises the
+    stream and cannot be captured in a CUDA graph, so it is built once per
+    ``(half, theta, device)``, outside inference mode, and kept; every
+    later call returns the kept tensor, the same bits.  Under a fake mode
+    (a dry run's count) it is built each call and not kept."""
+    if detect_fake_mode() is not None:
+        return _freqs(half, theta, device)
+    key = (half, float(theta), torch.device(device))
+    freqs = _FREQS.get(key)
+    if freqs is None:
+        with torch.inference_mode(False):
+            freqs = _FREQS[key] = _freqs(half, theta, device)
+    return freqs
+
+
+def _freqs(half: int, theta: float, device) -> torch.Tensor:
+    exps = -torch.arange(0, half, dtype=torch.float32, device=device) / half
+    return torch.pow(torch.tensor(theta, dtype=torch.float32, device=device), exps)
+
+
 def rotary(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
     """Interleaved (NeoX pair) rotary embedding, angles in float32.
 
@@ -132,9 +160,7 @@ def rotary(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tens
     """
     hd = x.shape[-1]
     half = hd // 2
-    exps = -torch.arange(0, half, dtype=torch.float32, device=x.device) / half
-    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32, device=x.device),
-                      exps)
+    freqs = rotary_freqs(half, theta, x.device)
     angles = positions.to(device=x.device, dtype=torch.float32)[..., None] * freqs
     cos = torch.cos(angles)[..., None, :]        # (..., S, 1, hd/2)
     sin = torch.sin(angles)[..., None, :]

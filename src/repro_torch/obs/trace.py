@@ -152,11 +152,12 @@ class Tracer:
         self.spans.append(span)
         return span
 
-    def then(self, name: str, t: Optional[float] = None) -> int:
-        """Close the innermost open span at ``t`` (now by default) and open
-        its next sibling ``name`` from the same instant."""
+    def then(self, name: str, t: Optional[float] = None, **attrs) -> int:
+        """Close the innermost open span at ``t`` (now by default), adding
+        ``attrs`` to it, and open its next sibling ``name`` from the same
+        instant."""
         t = time.perf_counter() if t is None else t
-        self.close(t)
+        self.close(t, **attrs)
         return self.open(name, t)
 
     def span(self, name: str, **attrs):

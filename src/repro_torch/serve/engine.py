@@ -17,6 +17,12 @@ prefill and the pool.  Idle
 slots decode a stale token at position 0 of their own lane, which the next
 admission overwrites, as in ``repro.serve.engine``.
 
+The decode step always runs all B slots at fixed shapes, so on one card
+(a CUDA device, plain parameters) ``DecodeGraph`` captures it once as a
+CUDA graph and replays it every tick: the host launches one graph where
+the eager step launches thousands of kernels.  On the CPU, or with a
+mesh's DTensor parameters, every tick runs the eager step.
+
 While ``repro_torch.obs.trace.TRACER`` is on (enabled, or a
 ``torch.profiler`` trace active at the tick's start), each tick records
 its spans on the host clock (``time.perf_counter``)::
@@ -30,8 +36,9 @@ its spans on the host clock (``time.perf_counter``)::
     │   │   ├── layer.attn, moe.route, moe.dispatch, moe.experts, moe.combine
     │   │   └── serve.write_slot
     │   └── serve.prefill.wait      the read of the first token
-    ├── serve.decode.enqueue        the step's inputs and the decode step returning
-    │   └── layer.attn, moe.*       (every layer)
+    ├── serve.decode.enqueue        the step's inputs and the decode step returning;
+    │   │                           graph (1: the step replayed, 0: it ran eagerly)
+    │   └── layer.attn, moe.*       (every layer; none in a replay, which runs no Python)
     ├── serve.decode.wait           the read of the tokens
     └── serve.emit                  appending the tokens, freeing slots
 
@@ -50,14 +57,17 @@ from typing import Any, Deque, List, Optional
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch import resolve_device
+from repro_torch.kernels.ops import LAUNCHES
 from repro_torch.models.config import ArchConfig, CellTuning
 from repro_torch.models.model import SEQ_KEYS, cache_schema, cast_params
 from repro_torch.models.ops import ShardCtx
 from repro_torch.models.sharding import map_schema
 from repro_torch.obs.trace import TRACER
 from repro_torch.train.steps import make_prefill_step, make_serve_step
+from repro_torch.tree import leaves
 
 
 @dataclass
@@ -85,10 +95,92 @@ class EngineStats:
     prefill_tokens: int = 0
     prefill_s: float = field(default=0.0, compare=False)
     decode_s: float = field(default=0.0, compare=False)
+    # decode steps that replayed the captured graph (0 on the eager path)
+    decode_graph_replays: int = 0
 
     @property
     def occupancy_tokens_per_tick(self) -> float:
         return self.decoded_tokens / self.ticks if self.ticks else 0.0
+
+
+class DecodeGraph:
+    """The decode step ``(params, cache, tokens) -> (logits, cache)``,
+    replayed as one CUDA graph where the parameters are plain tensors on a
+    CUDA device; elsewhere (the CPU, a mesh's DTensors) the eager step.
+
+    The first call runs the step eagerly on a side stream: the tick's real
+    step, and the warm-up of what a capture needs (kernel builds, rotary's
+    frequencies, cuBLAS's workspace on that stream).  It then captures the
+    step once on that stream, on static buffers for the tokens (B, 1) and
+    the positions (B,) and on the cache's own pool tensors, which the step
+    updates in place.  A capture executes nothing, so no lane is written
+    twice.  Every later call copies the tokens and ``cache["pos"]`` into the
+    buffers and replays on the current stream; the logits and the returned
+    cache's ``pos`` are the graph's outputs, overwritten by the next replay.
+    A call with other parameters or cache tensors than the captured ones
+    raises, and so does a failed capture: nothing falls back to the eager
+    step.  While the capture runs, ``TRACER`` records nothing.
+
+    ``kernels.ops.LAUNCHES`` counts what the device runs: the capture adds
+    nothing, and each replay adds the kernel calls of the captured step."""
+
+    def __init__(self, step):
+        self.step = step
+        self.replays = 0
+        self._graphed: Optional[bool] = None     # decided at the first call
+        self._cuda_graph = None
+
+    def __call__(self, params, cache, tokens):
+        if self._cuda_graph is not None:
+            return self._replay(params, cache, tokens)
+        if self._graphed is None:
+            self._graphed = self.graphable(leaves(params)[0])
+        if not self._graphed:
+            return self.step(params, cache, tokens)
+        return self._capture(params, cache, tokens)
+
+    @staticmethod
+    def graphable(param: torch.Tensor) -> bool:
+        """Whether a step on parameters like ``param`` is captured: a plain
+        tensor (not a DTensor) on a CUDA device."""
+        return not isinstance(param, DTensor) and param.is_cuda
+
+    def _capture(self, params, cache, tokens):
+        device = tokens.device
+        self._tokens, self._pos = tokens.clone(), cache["pos"].clone()
+        static = dict(cache, pos=self._pos)
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            out = self.step(params, static, self._tokens)
+        torch.cuda.current_stream(device).wait_stream(side)
+
+        graph = torch.cuda.CUDAGraph()
+        before, on = dict(LAUNCHES), TRACER.on
+        TRACER.on = False
+        try:
+            with torch.cuda.graph(graph, stream=side):
+                self._out = self.step(params, static, self._tokens)
+        finally:
+            TRACER.on = on
+            self._launches = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+            LAUNCHES.update(before)
+        self._cuda_graph, self._params = graph, params
+        self._leaves = {k: v for k, v in cache.items() if k != "pos"}
+        return out
+
+    def _replay(self, params, cache, tokens):
+        if params is not self._params or cache.keys() != self._leaves.keys() | {"pos"} \
+                or any(cache[k] is not v for k, v in self._leaves.items()):
+            raise RuntimeError("the decode graph was captured on other parameters "
+                               "or cache tensors")
+        self._tokens.copy_(tokens)
+        self._pos.copy_(cache["pos"])
+        self._cuda_graph.replay()
+        for name, n in self._launches.items():
+            LAUNCHES[name] += n
+        self.replays += 1
+        return self._out
 
 
 class ServeEngine:
@@ -121,7 +213,10 @@ class ServeEngine:
                        ssm_impl=tuning.ssm_impl,
                        moe_row_dispatch=tuning.moe_row_dispatch)
         self._prefill = make_prefill_step(cfg, ctx)
-        self._decode = make_serve_step(cfg, ctx)
+        # the engine calls ``_decode``, which a wrapper may replace; ``_graph``
+        # keeps the runner, whose replays the engine counts
+        self._graph = DecodeGraph(make_serve_step(cfg, ctx))
+        self._decode = self._graph
 
         schema = cache_schema(cfg, slots, max_len, enc_len=cfg.enc_len)
         self.cache = map_schema(
@@ -228,9 +323,12 @@ class ServeEngine:
             tr.open("serve.decode.enqueue", t0)
         cache = dict(self.cache, pos=torch.as_tensor(self.slot_pos, device=self.device))
         toks = torch.as_tensor(self._next_tok[:, None], device=self.device)
+        replays = self._graph.replays
         logits, _ = self._decode(self.params, cache, toks)   # updated in place
+        replayed = self._graph.replays - replays
+        self.stats.decode_graph_replays += replayed
         if on:
-            tr.then("serve.decode.wait")
+            tr.then("serve.decode.wait", graph=replayed)
         nxt = torch.argmax(logits[:, : self.cfg.vocab], dim=-1).cpu().numpy()
         t2 = time.perf_counter()
         self.stats.decode_s += t2 - t0

@@ -245,7 +245,9 @@ def test_decode_kernel_reads_only_the_live_prefix(card):
 def test_decode_step_on_card_launches_the_kernel_per_layer(card):
     """A 256-slot engine's decode step on the card (granite's 24/8 heads at
     hd 64, two layers, bf16): the operator once per layer and two kernels
-    named decode_attn_* per call in the device trace.  Then three steps
+    named decode_attn_* per call in the device trace, which starts after
+    the engine captured its decode graph (the first tick), as the
+    benchmark's traced slice does: the step traced is a replay.  Then three steps
     from the engine's cache in float32 (where no router tie can flip) on
     both routes: logits within 1e-4 of their magnitude, and no
     synchronisation the plain route does not also make.  The weights are
@@ -278,11 +280,12 @@ def test_decode_step_on_card_launches_the_kernel_per_layer(card):
     for i in range(40):
         engine.submit(Request(i, rng.integers(0, cfg.vocab, size=int(rng.integers(8, 300))),
                               max_new_tokens=50))
-    engine.tick()                           # admits all 40, one step
+    engine.tick()                           # admits all 40, one step, the capture
     reset_launches()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         engine.tick()
     torch.cuda.synchronize()
+    assert engine.stats.decode_graph_replays == 1
     kernels = [e.name for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA and "decode_attn_" in e.name]
     assert LAUNCHES["decode_attention"] == cfg.n_layers
@@ -466,6 +469,186 @@ def test_hybrid_engine_on_card_launches_kernels(card):
     assert LAUNCHES["ssd_scan"] == 3 * cfg.n_layers
     assert LAUNCHES["flash_attention"] == 3 * (cfg.n_layers // cfg.shared_attn_period)
     assert all(len(r.generated) == 4 for r in reqs)
+
+
+# --------------------------------------------------------------------------
+# the decode step replayed as a CUDA graph
+# --------------------------------------------------------------------------
+
+GRAPH_ARCHS = ["granite-moe-3b-a800m", "granite-4.0-h-small", "qwen2-1.5b",
+               "zamba2-1.2b", "falcon-mamba-7b", "whisper-large-v3"]
+
+# (tick, prompt length, max new tokens): staggered admissions into 3 slots,
+# more requests than slots (slot reuse), idle slots between them; request 2
+# also stops at an EOS (``_graph_schedule``)
+GRAPH_REQUESTS = ((0, 11, 6), (2, 7, 12), (2, 14, 9), (5, 9, 8), (9, 5, 5), (9, 13, 4))
+
+
+def _graph_twin(name, device):
+    """A reduced twin of ``name`` (granite-4.0-h-small: two periods' worth
+    of M and A layers, 8 experts top-2 plus the shared expert), its seeded
+    float32 weights with attention rescaled, on ``device``."""
+    import dataclasses
+
+    from repro_torch.configs.granite_4_0_h_small import ARCH as GRANITE_4_H
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.launch.train import rescale_attention
+    from repro_torch.models.config import MoEConfig
+    from repro_torch.models.schema import build_schema
+    from repro_torch.models.sharding import init_from_schema
+    from repro_torch.models.testing import reduced
+
+    if name == "granite-4.0-h-small":
+        cfg = dataclasses.replace(
+            reduced(dataclasses.replace(GRANITE_4_H, n_layers=4, layer_pattern="MAMM")),
+            moe=MoEConfig(n_experts=8, top_k=2, n_experts_padded=8, capacity_factor=4.0,
+                          shared_d_ff=48))
+    else:
+        cfg = reduced(ARCHS[name])
+    params = init_from_schema(0, build_schema(cfg), torch.float32, device)
+    rescale_attention(params)
+    return cfg, params
+
+
+def _graph_schedule(cfg, eos=None):
+    from repro_torch.serve import Request
+
+    rng = np.random.default_rng(4)
+    return [(tick, Request(i, rng.integers(0, cfg.vocab, size=n), max_new_tokens=m,
+                           eos_token=eos if i == 2 else None))
+            for i, (tick, n, m) in enumerate(GRAPH_REQUESTS)]
+
+
+def _lockstep(engines, schedule):
+    """Tick ``engines`` (name -> engine) side by side on the same requests
+    until all are drained.  Returns, per tick, each engine's decode logits
+    (None where it decoded nothing), its cache leaves and the kernel calls
+    it counted; and each engine's requests."""
+    import copy
+
+    reqs = {k: [(t, copy.deepcopy(r)) for t, r in schedule] for k in engines}
+    seen = {}
+    for name, eng in engines.items():
+        step = eng._decode
+
+        def record(params, cache, toks, step=step, name=name):
+            logits, new = step(params, cache, toks)
+            seen[name] = logits.clone()
+            return logits, new
+
+        eng._decode = record
+    ticks = []
+    for tick in range(200):
+        if tick > max(t for t, _ in schedule) and all(
+                not e.queue and all(r is None for r in e.slot_req) for e in engines.values()):
+            break
+        row = {}
+        for name, eng in engines.items():
+            for t, r in reqs[name]:
+                if t == tick:
+                    eng.submit(r)
+            seen[name] = None
+            before = dict(LAUNCHES)
+            eng.tick()
+            row[name] = (seen[name], {k: v.clone() for k, v in eng.cache.items()},
+                         {k: LAUNCHES[k] - before[k] for k in LAUNCHES})
+        ticks.append(row)
+    return ticks, {k: [r for _, r in v] for k, v in reqs.items()}
+
+
+@pytest.mark.parametrize("name", GRAPH_ARCHS)
+def test_replayed_decode_step_equals_the_eager_step(card, name):
+    """Each family's reduced twin in bf16 on 3 slots, over ten or more ticks
+    of staggered admissions, slot reuse, idle slots and an EOS: the engine
+    that replays its captured decode graph and one that runs the eager step
+    every tick give the same logits and the same cache lanes, bit for bit,
+    after every tick, count the same kernel calls, and the graph engine
+    replays on every decoding tick but the first (its capture)."""
+    from repro_torch.models.config import CellTuning
+    from repro_torch.serve import ServeEngine
+
+    cfg, params = _graph_twin(name, card)
+
+    def engines():
+        out = {kind: ServeEngine(cfg, params, slots=3, max_len=40,
+                                 tuning=CellTuning(compute_dtype="bfloat16"))
+               for kind in ("graph", "eager")}
+        out["eager"]._decode = out["eager"]._graph.step
+        return out
+
+    # the EOS: request 2's third token on a first run without one
+    _, probe = _lockstep({"eager": engines()["eager"]}, _graph_schedule(cfg))
+    eos = probe["eager"][2].generated[2]
+    eng = engines()
+    ticks, reqs = _lockstep(eng, _graph_schedule(cfg, eos))
+    decoding = [i for i, row in enumerate(ticks) if row["eager"][0] is not None]
+    assert len(decoding) >= 10
+    for i, row in enumerate(ticks):
+        (lg, cache, launches), (le, cache_e, launches_e) = row["graph"], row["eager"]
+        assert (lg is None) == (le is None), i
+        if lg is not None:
+            assert torch.equal(lg, le), (i, float((lg.float() - le.float()).abs().max()))
+        for key in cache_e:
+            assert torch.equal(cache[key], cache_e[key]), (i, key)
+        assert launches == launches_e, i
+    assert [r.generated for r in reqs["graph"]] == [r.generated for r in reqs["eager"]]
+    stop = reqs["eager"][2]
+    assert stop.generated[-1] == eos and len(stop.generated) < GRAPH_REQUESTS[2][2]
+    assert eng["graph"].stats.decode_graph_replays == len(decoding) - 1
+    assert eng["eager"].stats.decode_graph_replays == 0
+
+
+def test_replay_on_other_cache_tensors_raises(card):
+    """The graph holds the pool's tensors: a cache whose leaves were
+    replaced after the capture cannot be replayed."""
+    from repro_torch.serve import Request, ServeEngine
+
+    cfg, params = _graph_twin("qwen2-1.5b", card)
+    engine = ServeEngine(cfg, params, slots=2, max_len=32)
+    engine.submit(Request(0, np.arange(5) % cfg.vocab, max_new_tokens=8))
+    engine.tick()                           # eager step, then the capture
+    engine.tick()                           # a replay
+    assert engine.stats.decode_graph_replays == 1
+    engine.cache = {k: v.clone() for k, v in engine.cache.items()}
+    with pytest.raises(RuntimeError, match="captured on other"):
+        engine.tick()
+
+
+def test_a_failing_capture_raises(card):
+    """A step that copies from the host cannot be captured: the runner's
+    first call runs it eagerly, then the capture raises, and nothing falls
+    back.  In a process of its own, as a failed capture leaves its stream's
+    allocations to the graph's pool."""
+    import os
+    import subprocess
+    import sys
+    import textwrap
+    from pathlib import Path
+
+    code = textwrap.dedent("""
+        import torch
+        from repro_torch.serve.engine import DecodeGraph
+
+        def step(params, cache, tokens):
+            # a pageable host-to-device copy, which synchronises
+            return tokens * torch.tensor(2, device=tokens.device), cache
+
+        runner = DecodeGraph(step)
+        cache = {"pos": torch.zeros(2, dtype=torch.int32, device="cuda")}
+        toks = torch.ones(2, 1, dtype=torch.int64, device="cuda")
+        try:
+            runner({"w": torch.zeros(2, device="cuda")}, cache, toks)
+        except RuntimeError as e:
+            print("raised:", str(e).splitlines()[0])
+        print("graph:", runner._cuda_graph is not None, "replays:", runner.replays)
+        """)
+    src = str(Path(__file__).resolve().parents[1] / "src")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([src, os.environ.get("PYTHONPATH", "")]))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=300, env=env)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "raised:" in out.stdout, out.stdout
+    assert "graph: False replays: 0" in out.stdout, out.stdout
 
 
 def _plan_card_and_cpu(problem, cfg_factory):

@@ -85,6 +85,68 @@ def test_rotary_matches(per_slot):
     _close(tops.rotary(_t(x), _t(pos), 1e6), jops.rotary(x, jnp.asarray(pos), 1e6))
 
 
+def _rotary_building_freqs(x, positions, theta):
+    """``rotary`` as it was before its frequencies were kept: built from a
+    host copy of ``theta`` on every call."""
+    half = x.shape[-1] // 2
+    exps = -torch.arange(0, half, dtype=torch.float32, device=x.device) / half
+    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32, device=x.device), exps)
+    angles = positions.to(device=x.device, dtype=torch.float32)[..., None] * freqs
+    cos = torch.cos(angles)[..., None, :]
+    sin = torch.sin(angles)[..., None, :]
+    x2 = x.reshape(*x.shape[:-1], half, 2)
+    x_even, x_odd = x2[..., 0], x2[..., 1]
+    out = torch.stack([x_even * cos - x_odd * sin, x_even * sin + x_odd * cos], dim=-1)
+    return out.reshape(x.shape).to(x.dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("where", ["prefill", "decode"])
+@pytest.mark.parametrize("theta", [1e4, 5e5, 1e6])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_rotary_with_kept_freqs_is_bit_equal(hd, theta, where, dtype):
+    """The kept frequencies give the bits the per-call build gave: at the
+    prefill's positions (arange S) and the decode step's per-slot
+    positions ((B, 1): each slot's own pos), on a first call and again."""
+    g = torch.Generator().manual_seed(hd)
+    if where == "prefill":
+        x = torch.randn(1, 37, 4, hd, generator=g).to(dtype)
+        pos = torch.arange(37)
+    else:
+        x = torch.randn(5, 1, 4, hd, generator=g).to(dtype)
+        pos = torch.tensor([0, 3, 511, 2047, 12799])[:, None] + torch.arange(1)
+    want = _rotary_building_freqs(x, pos, theta)
+    for _ in range(2):
+        assert torch.equal(tops.rotary(x, pos, theta), want)
+
+
+def test_rotary_reuses_its_kept_freqs(monkeypatch):
+    """A second call with the same (half, theta, device) reuses the tensor
+    the first built, and builds nothing: no host copy of theta.  The kept
+    tensor is no inference tensor, so a training step can use it after a
+    serving step kept it; a fake mode's call keeps nothing."""
+    from torch._subclasses.fake_tensor import FakeTensor, FakeTensorMode
+
+    with torch.inference_mode():
+        first = tops.rotary_freqs(24, 12345.0, "cpu")
+    assert not first.is_inference()
+    assert tops.rotary_freqs(24, 12345.0, torch.device("cpu")) is first
+    assert tops.rotary_freqs(24, 54321.0, "cpu") is not first
+
+    def no_build(*args):
+        raise AssertionError("rotary built its frequencies again")
+
+    monkeypatch.setattr(tops, "_freqs", no_build)
+    x = torch.randn(2, 3, 4, 48)
+    tops.rotary(x, torch.arange(3), 12345.0)
+    kept = dict(tops._FREQS)
+    monkeypatch.undo()
+    with FakeTensorMode():
+        fake = tops.rotary_freqs(24, 777.0, "cpu")
+    assert isinstance(fake, FakeTensor)
+    assert tops._FREQS == kept
+
+
 @pytest.mark.parametrize("kv_len", [None, 9, "vector"])
 @pytest.mark.parametrize("causal", [True, False])
 def test_attention_reference_matches(kv_len, causal):

@@ -211,3 +211,69 @@ def test_hybrid_engine_cache_lanes(hybrid_setup):
     engine.submit(Request(0, _prompts(15, [10], cfg.vocab)[0], max_new_tokens=3))
     stats = engine.run_until_drained()
     assert stats.finished == 1 and stats.decoded_tokens == 3
+
+
+def test_decode_runner_on_the_cpu_is_the_eager_step(dense_setup):
+    """On the CPU the engine's decode runner is the eager step: the same
+    tokens and counters as an engine that calls the step itself, no graph,
+    no replay, and every traced decode step marked ``graph`` 0."""
+    from repro_torch.obs.trace import TRACER
+
+    cfg, params = dense_setup[:2]
+    prompts = _prompts(16, [9, 14, 6], cfg.vocab)
+    engines = [ServeEngine(cfg, params, slots=2, max_len=32, device="cpu")
+               for _ in range(2)]
+    engines[1]._decode = engines[1]._graph.step
+    outs = []
+    TRACER.enabled = True
+    TRACER.clear()
+    try:
+        for engine in engines:
+            reqs = [Request(i, p, max_new_tokens=5) for i, p in enumerate(prompts)]
+            for r in reqs:
+                engine.submit(r)
+            stats = engine.run_until_drained()
+            outs.append(([r.generated for r in reqs],
+                         tuple(getattr(stats, c) for c in COUNTERS)))
+        steps = TRACER.by_name("serve.decode.enqueue")
+    finally:
+        TRACER.enabled = False
+        TRACER.clear()
+    assert outs[0] == outs[1]
+    assert engines[0]._graph._cuda_graph is None and engines[0]._graph.replays == 0
+    assert engines[0].stats.decode_graph_replays == 0
+    assert steps and all(s.attrs["graph"] == 0 for s in steps)
+
+
+def test_decode_runner_on_dtensor_parameters_is_the_eager_step():
+    """DTensor parameters (a mesh's) run the eager step on every call, and
+    are never captured; of plain tensors only those on a CUDA device are."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from repro_torch.launch.mesh import fake_world, make_mesh_from_shape
+    from repro_torch.serve.engine import DecodeGraph
+
+    calls = []
+
+    def step(params, cache, tokens):
+        calls.append(tokens)
+        return tokens.float(), cache
+
+    with FakeTensorMode():
+        on_card = torch.empty(2, device="cuda")
+    assert DecodeGraph.graphable(on_card)
+    assert not DecodeGraph.graphable(torch.empty(2))
+    with fake_world(1):
+        mesh = make_mesh_from_shape((1,), ("data",), "cpu")
+        params = {"w": DTensor.from_local(torch.ones(4, 2), mesh, (Replicate(),))}
+        assert not DecodeGraph.graphable(params["w"])
+        assert not DecodeGraph.graphable(
+            DTensor.from_local(on_card, mesh, (Replicate(),), run_check=False))
+        runner = DecodeGraph(step)
+        cache = {"pos": torch.zeros(2, dtype=torch.int32)}
+        for i in range(3):
+            toks = torch.full((2, 1), i)
+            logits, out = runner(params, cache, toks)
+            assert torch.equal(logits, toks.float()) and out is cache
+    assert len(calls) == 3 and runner._cuda_graph is None and runner.replays == 0
