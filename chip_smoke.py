@@ -304,14 +304,6 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 
-# Published dense peaks (NVIDIA data sheets) at each card's full power limit:
-# bf16 tensor FLOP/s, float32 (non-tensor) FLOP/s, memory bytes/s.
-CARDS = {
-    "H100 PCIe": (756e12, 51e12, 2.0e12),
-    "H100 NVL": (835e12, 60e12, 3.9e12),
-    "H100": (989e12, 67e12, 3.35e12),       # SXM, 80 GB HBM3
-    "H200": (989e12, 67e12, 4.8e12),
-}
 FLASH = {
     "name": "flash_attention",
     "route": "cuda",
@@ -355,13 +347,6 @@ PLAIN_ROWS = 1024
 
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
-
-
-def card_peaks(name: str):
-    for key, peaks in CARDS.items():
-        if key in name:
-            return peaks
-    raise RuntimeError(f"no published peaks for {name!r}; known: {sorted(CARDS)}")
 
 
 def cuda_ms(fn, reps: int = 20, warm: int = 3) -> float:
@@ -408,23 +393,18 @@ def eager_ms(fn, reps: int = 20, warm: int = 3) -> float:
     return t0.elapsed_time(t1) / reps
 
 
-def attention_bound_ms(B, Sq, Sk, H, KV, hd, causal, dtype, peaks,
-                       q_offset: int = 0) -> tuple:
-    """(ms, "bytes"|"operations"): the larger of the bytes each input read
-    once and the output written once over the memory rate, and the
-    multiply-adds of QK^T and PV over the live (query, key) pairs over the
-    peak rate for the input type (causal: query row i, at position
-    q_offset + i, sees q_offset + i + 1 keys)."""
-    import torch
+def attention_bound(B, Sq, Sk, H, KV, hd, causal, dtype, peaks,
+                    q_offset: int = 0) -> tuple:
+    """(ms, "bytes"|"operations"): the benchmark's least time of one
+    attention call (``portbench.yardstick.bounds.attention_bound_s``) and
+    which of ``attention_work``'s two terms sets it."""
+    from portbench.yardstick.bounds import attention_bound_s, attention_work
 
-    bf16_rate, f32_rate, mem_rate = peaks
-    es = 2 if dtype == torch.bfloat16 else 4
-    pairs = Sq * q_offset + Sq * (Sq + 1) // 2 if causal else Sq * Sk
-    flops = 4.0 * B * H * hd * pairs
-    nbytes = es * B * hd * (2 * Sq * H + 2 * Sk * KV)
-    t_ops = flops / (bf16_rate if dtype == torch.bfloat16 else f32_rate)
-    t_mem = nbytes / mem_rate
-    return (1e3 * max(t_ops, t_mem), "operations" if t_ops >= t_mem else "bytes")
+    es = dtype.itemsize
+    flops, nbytes = attention_work(B, Sq, Sk, H, KV, hd, causal, es, q_offset)
+    rate = peaks.bf16_flops if es == 2 else peaks.f32_flops
+    by = "operations" if flops / rate >= nbytes / peaks.mem_bytes else "bytes"
+    return 1e3 * attention_bound_s(B, Sq, Sk, H, KV, hd, causal, es, peaks, q_offset), by
 
 
 def ssd_chunked_flops(B, S, nh, hp, n, chunk) -> float:
@@ -465,6 +445,8 @@ def ssd_bound_ms(B, S, nh, hp, n, dtype, peaks) -> tuple:
 def phase_device():
     import torch
 
+    from portbench.yardstick.peaks import card_peaks
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
@@ -500,10 +482,7 @@ FLASH_AT = {"at_zamba2": ("zamba2", "bfloat16"), "at_granite": ("granite", "bflo
 def phase_kernel(peaks) -> tuple:
     import torch
 
-    from repro_torch.kernels.flash_attention import (
-        flash_attention_cuda,
-        flash_attention_plain,
-    )
+    from repro_torch.kernels.flash_attention import attention_reference, flash_attention_cuda
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -558,11 +537,11 @@ def phase_kernel(peaks) -> tuple:
         out = flash_attention_cuda(q, k, v, causal=causal, q_offset=off, scale=sm)
         torch.cuda.synchronize()
         if Sq > 4 * PLAIN_ROWS:               # causal, square: rows in blocks
-            ref = torch.cat([flash_attention_plain(
+            ref = torch.cat([attention_reference(
                 q[:, r:r + PLAIN_ROWS], k, v, causal=True, q_offset=r, scale=sm)
                 for r in range(0, Sq, PLAIN_ROWS)], dim=1)
         else:
-            ref = flash_attention_plain(q, k, v, causal=causal, q_offset=off, scale=sm)
+            ref = attention_reference(q, k, v, causal=causal, q_offset=off, scale=sm)
         tol = 1e-4 if what == "logits~40" else TOL[dt]
         diff = (out.float() - ref.float()).abs()
         err = float(diff.max())
@@ -582,12 +561,12 @@ def phase_kernel(peaks) -> tuple:
                 lambda: flash_attention_cuda(q, k, v, causal=causal, scale=sm))
             # past 4 blocks of rows the plain version's scores would not fit
             row["plain_ms"] = None if Sq > 4 * PLAIN_ROWS else cuda_ms(
-                lambda: flash_attention_plain(q, k, v, causal=causal, scale=sm))
+                lambda: attention_reference(q, k, v, causal=causal, scale=sm))
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
             row["library_ms"] = cuda_ms(
                 lambda: torch.nn.functional.scaled_dot_product_attention(
                     qt, kt, vt, is_causal=causal, enable_gqa=True, scale=sm))
-            row["bound_ms"], row["bound_by"] = attention_bound_ms(
+            row["bound_ms"], row["bound_by"] = attention_bound(
                 B, Sq, Sk, H, KV, hd, causal, dtype, peaks)
             for key, case in FLASH_AT.items():
                 if (what, dt) == case:
@@ -665,10 +644,11 @@ def phase_decode(peaks) -> dict:
     import numpy as np
     import torch
 
-    from repro_torch.kernels.decode_attention import (
-        decode_attention_cuda,
-        decode_attention_plain,
-    )
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
+    from repro_torch.kernels.flash_attention import attention_reference
+
+    def plain(q, k, v, kv_len, sm):
+        return attention_reference(q, k, v, causal=False, kv_len=kv_len, scale=sm)
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -693,7 +673,7 @@ def phase_decode(peaks) -> dict:
             kv_len = torch.as_tensor(lens, dtype=torch.int32, device=dev)
         out = decode_attention_cuda(q, k, v, kv_len, sm)
         torch.cuda.synchronize()
-        ref = decode_attention_plain(q, k, v, kv_len, sm)
+        ref = plain(q, k, v, kv_len, sm)
         err, ok = decode_close(out, ref)
         row = dict(case=what, shape=[B, 1, Sk, H, KV, hd], dtype=dt,
                    kernel_route="flash_decode_f32_math", kv_len_mean=float(lens.mean()),
@@ -711,7 +691,7 @@ def phase_decode(peaks) -> dict:
             row["bound_by"] = "operations" if t_ops >= t_mem else "bytes"
             row["ms"] = cuda_ms(lambda: decode_attention_cuda(q, k, v, kv_len, sm))
             row["eager_ms"] = eager_ms(lambda: decode_attention_cuda(q, k, v, kv_len, sm))
-            row["plain_ms"] = cuda_ms(lambda: decode_attention_plain(q, k, v, kv_len, sm))
+            row["plain_ms"] = cuda_ms(lambda: plain(q, k, v, kv_len, sm))
             mask = (torch.arange(Sk, device=dev)[None, :] < kv_len[:, None])[:, None, None]
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
             row["library_ms"] = cuda_ms(
@@ -745,9 +725,9 @@ def phase_ssd(peaks) -> tuple:
     from repro_torch.kernels.ssd_scan import (
         ALL_PASSES,
         PASSES,
+        ssd_chunked,
         ssd_scan_cuda,
         ssd_scan_launcher,
-        ssd_scan_plain,
     )
 
     ssd_work = _metric("ssd_scan_roofline").ssd_work
@@ -785,7 +765,7 @@ def phase_ssd(peaks) -> tuple:
         x, dts, Bc, Cc = (t.to(dtype) for t in (x, dts, Bc, Cc))
         y, h = ssd_scan_cuda(x, dts, A, Bc, Cc, chunk=chunk)
         torch.cuda.synchronize()
-        yr, hr = ssd_scan_plain(x, dts, A, Bc, Cc, chunk=chunk)
+        yr, hr = ssd_chunked(x, dts, A, Bc, Cc, chunk)
         tol = SSD_TOL[dt]
         err, ok = 0.0, True
         for out, ref in ((y, yr), (h, hr)):
@@ -814,7 +794,7 @@ def phase_ssd(peaks) -> tuple:
             launch(ALL_PASSES)
             row["pass_ms"] = {name: cuda_ms(lambda bit=bit: launch(bit))
                               for name, bit in PASSES.items()}
-            row["plain_ms"] = cuda_ms(lambda: ssd_scan_plain(x, dts, A, Bc, Cc, chunk=chunk))
+            row["plain_ms"] = cuda_ms(lambda: ssd_chunked(x, dts, A, Bc, Cc, chunk))
             row["library_ms"] = None      # no single PyTorch call computes it
             row["bound_ms"], row["bound_by"], row["bound_flops"], row["bound_bytes"] = \
                 ssd_bound_ms(B, S, nh, hp, n, dtype, peaks)
@@ -825,7 +805,7 @@ def phase_ssd(peaks) -> tuple:
             # the benchmark's yardstick: the configuration's bf16 bytes and
             # the bf16 tensor rate, whatever the inputs' type here
             flops, nbytes = ssd_work(B, S, nh, hp, n, 2)
-            bound_ms = 1e3 * max(flops / peaks[0], nbytes / peaks[2])
+            bound_ms = 1e3 * max(flops / peaks.bf16_flops, nbytes / peaks.mem_bytes)
             row["roofline_bf16_pct"] = 100.0 * bound_ms / row["ms"]
             long_doc[f"at_long_doc_{S}_{dt}"] = row
         emit("ssd", **row)
@@ -3117,8 +3097,8 @@ def _mesh_kernel_rows(peaks, real_rows) -> dict:
     import torch
 
     from repro_torch.kernels import flash_attention
-    from repro_torch.kernels.flash_attention import flash_attention_plain
-    from repro_torch.kernels.ssd_scan import ssd_scan_cuda, ssd_scan_plain
+    from repro_torch.kernels.flash_attention import attention_reference
+    from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_scan_cuda
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(7)
@@ -3131,10 +3111,10 @@ def _mesh_kernel_rows(peaks, real_rows) -> dict:
                 dtype = getattr(torch, call["dtype"])
                 if name == "flash_attention":
                     row = _mesh_flash_row(call["args"], dtype, gen, peaks, flash_attention,
-                                          flash_attention_plain)
+                                          attention_reference)
                 else:
                     row = _mesh_ssd_row(call["args"], dtype, gen, peaks, ssd_scan_cuda,
-                                        ssd_scan_plain)
+                                        ssd_chunked)
                 row["calls_per_step"] = call["calls"]
                 torch.cuda.empty_cache()
                 emit("mesh", case="kernel_at_local_shape", at=key, **row)
@@ -3174,7 +3154,7 @@ def _mesh_flash_row(args, dtype, gen, peaks, kernel, plain_fn) -> dict:
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
             qt, kt, vt, is_causal=causal, enable_gqa=True), reps=5)
-    bound, by = attention_bound_ms(B, Sq, Sk, H, KV, hd, causal, dtype, peaks, q_offset)
+    bound, by = attention_bound(B, Sq, Sk, H, KV, hd, causal, dtype, peaks, q_offset)
     return dict(kernel="flash_attention", shape=[B, Sq, Sk, H, KV, hd], causal=causal,
                 q_offset=q_offset, dtype=str(dtype).removeprefix("torch."),
                 kernel_route=FLASH_ROUTE[str(dtype).removeprefix("torch.")],
@@ -3194,7 +3174,7 @@ def _mesh_ssd_row(args, dtype, gen, peaks, kernel, plain_fn) -> dict:
     Bc = torch.randn(B, S, n, generator=gen, device=dev).to(dtype)
     Cc = torch.randn(B, S, n, generator=gen, device=dev).to(dtype)
     y, h = kernel(x, dts, A, Bc, Cc, chunk=chunk)
-    yr, hr = plain_fn(x, dts, A, Bc, Cc, chunk=chunk)
+    yr, hr = plain_fn(x, dts, A, Bc, Cc, chunk)
     tol = SSD_TOL[str(dtype).removeprefix("torch.")]
     err = max(float((y - yr).abs().max()), float((h - hr).abs().max()))
     ok = all(bool(((a - b).abs() <= tol + tol * b.abs()).all())
@@ -3204,7 +3184,7 @@ def _mesh_ssd_row(args, dtype, gen, peaks, kernel, plain_fn) -> dict:
                 dtype=str(dtype).removeprefix("torch."), kernel_route="cuda_core_f32",
                 max_abs_err=err, tol=tol, ok=ok,
                 ms=cuda_ms(lambda: kernel(x, dts, A, Bc, Cc, chunk=chunk), reps=5),
-                plain_ms=cuda_ms(lambda: plain_fn(x, dts, A, Bc, Cc, chunk=chunk), reps=5),
+                plain_ms=cuda_ms(lambda: plain_fn(x, dts, A, Bc, Cc, chunk), reps=5),
                 library_ms=None, bound_ms=bound, bound_by=by)
 
 

@@ -7,8 +7,13 @@
                      prefix of its cache lane (replaces none; the decode
                      step's cache attention)
 
-``ops`` holds the model-layout wrappers and the launch counts; ``ref`` the
+Each kernel's module holds its wrapper and its one plain PyTorch version
+(``flash_attention.attention_reference``, which with ``kv_len`` is decode
+attention's too, and ``ssd_scan.ssd_chunked``): the operators' CPU
+implementation, the models' plain routes and the comparison on the card.
+``ops`` holds the model-layout operators and the launch counts; ``ref`` the
 naive oracles; ``build`` compiles ``csrc/*.cu`` with nvcc at first use.
+The models import this package; it imports nothing of them.
 """
 from .ops import (LAUNCHES, decode_attention, flash_attention,  # noqa: F401
                   reset_launches, ssd_scan)

@@ -17,9 +17,9 @@ as the nearest end of that range.
 Scores are scaled by ``scale`` (None: ``1/sqrt(hd)``).
 
 ``decode_attention_cuda`` launches the kernel and raises on anything it
-does not take; it never falls back.  ``decode_attention_plain`` is
-``models.ops.attention_reference`` with ``kv_len``: the CPU path and the
-comparison on the card.
+does not take; it never falls back.  Its plain version is
+``flash_attention.attention_reference`` with ``kv_len``, non-causal: the
+operator's CPU implementation and the comparison on the card.
 """
 from __future__ import annotations
 
@@ -28,8 +28,6 @@ import math
 from typing import Optional
 
 import torch
-
-from repro_torch.models.ops import attention_reference
 
 from . import build
 
@@ -54,15 +52,6 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise TypeError(f"kv_len must be an integer tensor, not {kv_len.dtype}")
         if kv_len.ndim > 1 or kv_len.numel() not in (1, B):
             raise ValueError(f"kv_len must be 0-d or ({B},); got {tuple(kv_len.shape)}")
-
-
-def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                           kv_len: Optional[torch.Tensor] = None,
-                           scale: Optional[float] = None) -> torch.Tensor:
-    """The kernel's function in plain PyTorch (float32 math, output in q's
-    dtype): ``attention_reference`` over the first ``kv_len`` keys."""
-    _check(q, k, v, kv_len)
-    return attention_reference(q, k, v, causal=False, kv_len=kv_len, scale=scale)
 
 
 def _kernel():

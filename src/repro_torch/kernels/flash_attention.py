@@ -11,19 +11,23 @@ later query rows against every key (a shard of a sequence-sharded q).
 Scores are scaled by ``scale`` (None: ``1/sqrt(hd)``).
 
 ``flash_attention_cuda`` launches the kernel and raises on anything it does
-not take; it never falls back.  ``flash_attention_plain`` computes the same
-function in plain PyTorch: the CPU path and the comparison on the card.
+not take; it never falls back.  ``attention_reference`` computes the same
+function in plain PyTorch, and with ``kv_len`` that of the decode kernel
+(``decode_attention``) too: it is the CPU implementation of both operators,
+the comparison on the card, and the models' plain attention
+(``models.ops.attention_chunked``, a cache whose head dim is sharded).
 """
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
 from . import build
 
+NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _FN = None
 
@@ -45,26 +49,46 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise TypeError(f"q, k, v dtypes differ: {q.dtype}, {k.dtype}, {v.dtype}")
 
 
-def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          *, causal: bool, q_offset: int = 0,
-                          scale: Optional[float] = None) -> torch.Tensor:
-    """The kernel's function in plain PyTorch: float32 math, GQA by
-    grouping query heads, output in q's dtype."""
-    _check(q, k, v, causal, q_offset)
+def attention_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool,
+    q_offset: int = 0,
+    kv_len: Optional[Union[int, torch.Tensor]] = None,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Plain softmax attention with GQA head grouping, math in float32.
+
+    q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd).  H must be a multiple of KV.
+    ``q_offset``: absolute position of q[0] (for causal masking in decode).
+    ``kv_len``: optional number of valid kv entries (cache decode); a
+    scalar, or a (B,) vector for continuous-batching decode where every
+    slot sits at its own sequence position.
+    ``scale``: the scores' factor; None divides them by sqrt(hd).
+    """
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
-    qg = q.float().reshape(B, Sq, KV, H // KV, hd)
-    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) * _scale(scale, hd)
+    G = H // KV
+    qg = q.reshape(B, Sq, KV, G, hd).float()
+    scores = torch.einsum("bqkgh,bskh->bkgqs", qg, k.float())
+    scores = scores / math.sqrt(hd) if scale is None else scores * scale
+    mask = None  # broadcastable to (B, 1, 1, Sq, Sk)
     if causal:
-        keep = torch.ones(Sq, Sk, dtype=torch.bool, device=q.device).tril(q_offset)
-        s = s.masked_fill(~keep, float("-inf"))
-    w = torch.softmax(s, dim=-1)
-    out = torch.einsum("bkgqs,bskd->bqkgd", w, v.float())
+        qpos = q_offset + torch.arange(Sq, device=q.device)
+        kpos = torch.arange(Sk, device=q.device)
+        mask = (qpos[:, None] >= kpos[None, :])[None, None, None]
+    if kv_len is not None:
+        kv_len = torch.as_tensor(kv_len, device=q.device).reshape(-1)
+        valid = torch.arange(Sk, device=q.device)[None, :] < kv_len[:, None]
+        valid = valid[:, None, None, None, :]       # (B|1, 1, 1, 1, Sk)
+        mask = valid if mask is None else mask & valid
+    if mask is not None:
+        scores = scores.masked_fill(~mask, NEG_INF)
+    w = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgqs,bskh->bqkgh", w, v.float())
     return out.reshape(B, Sq, H, hd).to(q.dtype)
-
-
-def _scale(scale: Optional[float], hd: int) -> float:
-    return 1.0 / math.sqrt(hd) if scale is None else float(scale)
 
 
 def _kernel():
@@ -119,7 +143,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                  _DTYPES[q.dtype], B, H, KV, Sq, Sk, hd, strides,
-                 _scale(scale, hd), int(causal), int(q_offset), stream)
+                 1.0 / math.sqrt(hd) if scale is None else float(scale), int(causal),
+                 int(q_offset), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel failed: CUDA error {err} "
                            f"({err_str(err).decode()})")

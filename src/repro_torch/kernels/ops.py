@@ -3,8 +3,12 @@
 Each kernel is a ``torch.library`` operator (``repro_torch::flash_attention``,
 ``repro_torch::decode_attention``, ``repro_torch::ssd_scan``): its CUDA
 implementation is the hand-written kernel, which launches or raises; its
-CPU implementation is the kernel's plain PyTorch version.  There is no
-other route: nothing here falls back from the kernel to the plain version.
+CPU implementation is the kernel's one plain PyTorch version, after the
+same argument checks: ``flash_attention.attention_reference`` for both
+attention operators (with ``kv_len`` for decode), ``ssd_scan.ssd_chunked``
+for the scan.  The models' plain routes call those same functions.  There
+is no other route: nothing here falls back from the kernel to the plain
+version.
 ``LAUNCHES`` counts kernel launches, in the CUDA implementations and,
 for a step captured in a CUDA graph (``serve.engine.DecodeGraph``), once
 for each replay of the calls its capture made.  One ``ssd_scan`` count
@@ -17,11 +21,11 @@ launches two (the chunks' partial softmax, then their combination); one
 Each operator also has a fake implementation (output shapes and dtypes)
 and a FLOP formula, so ``launch.cost`` counts a step that goes through the
 kernels under ``FakeTensorMode`` without launching anything.  The formula
-is the work the torch route does for the same call (``attention_chunked``
-and the JAX package's XLA attention compute the masked full score matrix,
-``attention_reference`` the decode scores over the whole cache lane;
-``models.ssm.ssd_chunked`` the chunked SSD), so a roofline reads the same
-work whichever route computes it.
+is what ``FlopCounterMode`` counts for the operator's plain version at the
+same shapes (``attention_reference``: the masked full score matrix, over
+the whole cache lane for decode; ``ssd_chunked``: the chunked SSD), which
+is also the work the plain route and the JAX package's XLA code do, so a
+roofline reads the same work whichever route computes it.
 
 On DTensors each operator runs per shard through the sharding strategy
 registered here (``register_sharding``): flash attention with the batch
@@ -51,9 +55,9 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.distributed.tensor.experimental import register_sharding
 from torch.utils.flop_counter import register_flop_formula
 
-from .decode_attention import decode_attention_cuda, decode_attention_plain
-from .flash_attention import flash_attention_cuda, flash_attention_plain
-from .ssd_scan import ssd_scan_cuda, ssd_scan_plain
+from .decode_attention import _check as _decode_check, decode_attention_cuda
+from .flash_attention import _check as _flash_check, attention_reference, flash_attention_cuda
+from .ssd_scan import _check as _ssd_check, ssd_chunked, ssd_scan_cuda
 
 LAUNCHES: Dict[str, int] = {"flash_attention": 0, "decode_attention": 0, "ssd_scan": 0}
 
@@ -97,9 +101,10 @@ def _rule_of(name: str, rules, *tensors: torch.Tensor) -> None:
                          device_types="cpu")
 def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool, q_offset: int, scale: Optional[float]) -> torch.Tensor:
+    _flash_check(q, k, v, causal, q_offset)
     # contiguous, as the fake implementation's output
-    return flash_attention_plain(q, k, v, causal=causal, q_offset=q_offset,
-                                 scale=scale).contiguous()
+    return attention_reference(q, k, v, causal=causal, q_offset=q_offset,
+                               scale=scale).contiguous()
 
 
 @_flash_op.register_kernel("cuda")
@@ -157,7 +162,9 @@ def flash_attention(
                          device_types="cpu")
 def _decode_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                kv_len: Optional[torch.Tensor], scale: Optional[float]) -> torch.Tensor:
-    return decode_attention_plain(q, k, v, kv_len, scale).contiguous()
+    _decode_check(q, k, v, kv_len)
+    return attention_reference(q, k, v, causal=False, kv_len=kv_len,
+                               scale=scale).contiguous()
 
 
 @_decode_op.register_kernel("cuda")
@@ -177,7 +184,7 @@ def _decode_flops(q_shape, k_shape, v_shape, kv_len_shape, scale=None, *args,
                   out_shape=None, **kwargs) -> int:
     """QK^T and PV over the whole lane, as ``attention_reference`` computes
     them (the kernel reads only the live prefix; the count is the plain
-    route's, so the dry run counts the same work on either route)."""
+    version's, so the dry run counts the same work on either route)."""
     B, Sq, H, hd = q_shape
     return 4 * B * H * Sq * k_shape[1] * hd
 
@@ -225,7 +232,8 @@ def decode_attention(
 def _ssd_op(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             Bc: torch.Tensor, Cc: torch.Tensor,
             chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    return ssd_scan_plain(x, dt, A, Bc, Cc, chunk=chunk)
+    _ssd_check(x, dt, A, Bc, Cc, chunk)
+    return ssd_chunked(x, dt, A, Bc, Cc, chunk)
 
 
 @_ssd_op.register_kernel("cuda")
@@ -245,8 +253,8 @@ def _ssd_fake(x, dt, A, Bc, Cc, chunk):
 @register_flop_formula(torch.ops.repro_torch.ssd_scan)
 def _ssd_flops(x_shape, dt_shape, A_shape, Bc_shape, Cc_shape, chunk, *args,
                out_shape=None, **kwargs) -> int:
-    """What ``FlopCounterMode`` counts for ``models.ssm.ssd_chunked`` at the
-    same shapes (S padded to ``nc`` chunks of ``chunk``): per chunk C.B^T
+    """What ``FlopCounterMode`` counts for ``ssd_chunked`` at the same
+    shapes (S padded to ``nc`` chunks of ``chunk``): per chunk C.B^T
     (Q^2 n), the intra-chunk product (nh Q^2 hp), the chunk states and the
     inter-chunk output (nh Q hp n each)."""
     B_, S, nh, hp = x_shape

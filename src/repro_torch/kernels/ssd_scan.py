@@ -8,22 +8,25 @@ h (B, nh, hp, n), both float32.
 
 Chunks start at 0 every ``min(chunk, S)`` steps, as in the JAX wrapper, and
 the cumulative decay restarts at each chunk.  The last chunk may be
-partial: that is exactly the JAX wrapper's dt = 0 padding, whose steps
-leave the state unchanged and whose outputs are dropped, so neither
-function pads or transposes.
+partial: the kernel masks it itself; ``ssd_chunked`` pads it with dt = 0
+steps, as the JAX wrapper does, which leave the state unchanged and whose
+outputs are dropped.
 
 ``ssd_scan_cuda`` launches the kernel's five passes (cumsum, C.B^T per
 chunk, chunk states, state passing, chunk output; ``csrc/ssd_scan.cu``)
 and raises on anything it does not take; it never falls back.
-``ssd_scan_plain`` computes the same function in plain PyTorch, chunk by
-chunk as the TPU kernel does: the CPU path and the comparison on the card.
+``ssd_chunked`` computes the same function in plain PyTorch, every chunk at
+once (the JAX package's ``repro.models.ssm.ssd_chunked``): the operator's
+CPU implementation, the comparison on the card, and the mamba2 block's
+plain route (``ssm_impl="torch"``, training).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from . import build
 
@@ -51,38 +54,75 @@ def _check(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         raise ValueError(f"chunk must be positive, got {chunk}")
 
 
-def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
-                   Bc: torch.Tensor, Cc: torch.Tensor, *,
-                   chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The kernel's function in plain PyTorch, float32 math: per chunk,
-    ``cum = cumsum(dt A)``, the masked decay ``L``, the intra-chunk product,
-    the inter-chunk term through the carried state, then the state update."""
-    _check(x, dt, A, Bc, Cc, chunk)
+def segsum(dtA: torch.Tensor) -> torch.Tensor:
+    """Lower-triangular cumulative decay: out[..., i, j] = sum_{j<k<=i} dtA_k
+    for j <= i, -inf otherwise.  dtA: (..., Q)."""
+    Q = dtA.shape[-1]
+    cs = torch.cumsum(dtA, dim=-1)
+    diff = cs[..., :, None] - cs[..., None, :]
+    mask = torch.ones(Q, Q, dtype=torch.bool, device=dtA.device).tril()
+    return diff.masked_fill(~mask, float("-inf"))
+
+
+def _ssd_intra(L, scores, dtc, xc):
+    """y_intra = sum_k L[h,q,k] * scores[q,k] * dt[k,h] * x[k,h,p]."""
+    w = L * scores[:, :, None, :, :]                       # (B,nc,nh,Q,Q)
+    wdt = w * dtc.permute(0, 1, 3, 2)[:, :, :, None, :]    # * dt_k
+    return torch.einsum("bchqk,bckhp->bcqhp", wdt, xc)
+
+
+def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                Bc: torch.Tensor, Cc: torch.Tensor, chunk: int,
+                h0: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mamba2 SSD, chunked, math in float32.  x: (B,S,nh,hp); dt: (B,S,nh);
+    A: (nh,) (<0); Bc, Cc: (B,S,n) (shared across heads).  Returns (y,
+    h_final (B,nh,hp,n)), float32.
+    """
+    x, dt, A, Bc, Cc = (t.float() for t in (x, dt, A, Bc, Cc))
     B_, S, nh, hp = x.shape
     n = Bc.shape[-1]
-    xf, dtf, Bf, Cf = x.float(), dt.float(), Bc.float(), Cc.float()
-    Af = A.float()
-    h = torch.zeros(B_, nh, hp, n, dtype=torch.float32, device=x.device)
-    y = torch.empty(B_, S, nh, hp, dtype=torch.float32, device=x.device)
-    Q = min(chunk, S)
-    for c0 in range(0, S, Q):
-        c1 = min(c0 + Q, S)
-        xq, Bq, Cq = xf[:, c0:c1], Bf[:, c0:c1], Cf[:, c0:c1]
-        dq = dtf[:, c0:c1].transpose(1, 2)                 # (B, nh, Q)
-        cum = torch.cumsum(dq * Af[None, :, None], dim=-1)  # (B, nh, Q)
-        live = torch.ones(c1 - c0, c1 - c0, dtype=torch.bool,
-                          device=x.device).tril()
-        seg = cum[..., :, None] - cum[..., None, :]         # (B, nh, Q, Q)
-        L = torch.exp(seg.masked_fill(~live, float("-inf")))
-        scores = torch.einsum("bqn,bkn->bqk", Cq, Bq)
-        w = L * scores[:, None] * dq[:, :, None, :]
-        yq = torch.einsum("bhqk,bkhp->bqhp", w, xq)
-        yq = yq + torch.exp(cum).transpose(1, 2)[..., None] * torch.einsum(
-            "bqn,bhpn->bqhp", Cq, h)
-        y[:, c0:c1] = yq
-        decay_to_end = torch.exp(cum[..., -1:] - cum) * dq  # (B, nh, Q)
-        upd = torch.einsum("bhq,bqhp,bqn->bhpn", decay_to_end, xq, Bq)
-        h = torch.exp(cum[..., -1])[..., None, None] * h + upd
+    S0 = S
+    if S % chunk:
+        # pad to a chunk multiple: padded steps have dt = 0, so exp(dt*A) = 1
+        # and dt*B*x = 0 — the state passes through unchanged.
+        pad = chunk - S % chunk
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        Bc = F.pad(Bc, (0, 0, 0, pad))
+        Cc = F.pad(Cc, (0, 0, 0, pad))
+        S = S + pad
+    nc = S // chunk
+
+    xc = x.reshape(B_, nc, chunk, nh, hp)
+    dtc = dt.reshape(B_, nc, chunk, nh)
+    Bcc = Bc.reshape(B_, nc, chunk, n)
+    Ccc = Cc.reshape(B_, nc, chunk, n)
+    dtA = dtc * A                                          # (B,nc,Q,nh)
+
+    # intra-chunk (quadratic within chunk)
+    L = torch.exp(segsum(dtA.transpose(-1, -2)))           # (B,nc,nh,Q,Q)
+    scores = torch.einsum("bcqn,bckn->bcqk", Ccc, Bcc)     # (B,nc,Q,Q)
+    y_intra = _ssd_intra(L, scores, dtc, xc)
+
+    # chunk state: S_c = sum_k exp(sum_{j>k} dtA_j) dt_k B_k x_k
+    dtA_cum = torch.cumsum(dtA, dim=2)                     # (B,nc,Q,nh)
+    decay_to_end = torch.exp(dtA_cum[:, :, -1:, :] - dtA_cum)
+    states = torch.einsum("bcqh,bcqh,bcqn,bcqhp->bchpn",
+                          decay_to_end, dtc, Bcc, xc)      # (B,nc,nh,hp,n)
+
+    # inter-chunk recurrence (sequential over nc, nc is small)
+    chunk_decay = torch.exp(dtA_cum[:, :, -1, :])          # (B,nc,nh)
+    h = torch.zeros(B_, nh, hp, n, dtype=x.dtype, device=x.device) if h0 is None else h0
+    h_prevs = []
+    for c in range(nc):
+        h_prevs.append(h)                                  # state BEFORE chunk
+        h = h * chunk_decay[:, c, :, None, None] + states[:, c]
+    h_prevs = torch.stack(h_prevs, dim=1)                  # (B,nc,nh,hp,n)
+
+    # inter-chunk contribution: y_inter[q] = exp(dtA_cum[q]) C_q . h_prev
+    in_decay = torch.exp(dtA_cum)                          # (B,nc,Q,nh)
+    y_inter = torch.einsum("bcqn,bchpn,bcqh->bcqhp", Ccc, h_prevs, in_decay)
+    y = (y_intra + y_inter).reshape(B_, S, nh, hp)[:, :S0]
     return y, h
 
 

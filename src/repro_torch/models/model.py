@@ -53,14 +53,15 @@ import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels.flash_attention import attention_reference
 from repro_torch.launch.mesh import (local_shape_and_offset, per_shard,
                                      plain_tensors_replicated, redistribute)
 from repro_torch.obs.trace import TRACER
 
 from .config import ArchConfig, Family, MLPKind
 from .moe import moe_mlp
-from .ops import (NOSHARD, ShardCtx, attention_chunked, attention_reference, maybe_remat,
-                  rms_norm, rotary)
+from .ops import NOSHARD, ShardCtx, attention_chunked, maybe_remat, rms_norm, rotary
 from .sharding import ParamSchema as PS
 from .ssm import STATE_KEYS, mamba1_block, mamba2_block
 
@@ -189,9 +190,7 @@ def _attend_cache(q, kc, vc, ctx: ShardCtx, kv_len=None, scale=None) -> torch.Te
     vc = ctx.act(vc, ctx.dp, None, None, ctx.tp)
     q = ctx.act(q, ctx.dp, None, None, ctx.tp)
     if ctx.attention_impl == "kernel" and not _head_dim_sharded(kc):
-        from repro_torch.kernels.ops import decode_attention
-
-        out = decode_attention(q, kc, vc, kv_len, scale)
+        out = kops.decode_attention(q, kc, vc, kv_len, scale)
     else:
         out = attention_reference(q, kc, vc, causal=False, kv_len=kv_len, scale=scale)
     return ctx.act(out, ctx.dp, None, ctx.heads, None)
@@ -204,9 +203,7 @@ def _head_dim_sharded(t: torch.Tensor) -> bool:
 
 def _attention_core(q, k, v, causal, ctx, scale=None):
     if ctx.attention_impl == "kernel":
-        from repro_torch.kernels.ops import flash_attention
-
-        return flash_attention(q, k, v, causal=causal, scale=scale).to(q.dtype)
+        return kops.flash_attention(q, k, v, causal=causal, scale=scale).to(q.dtype)
     return attention_chunked(q, k, v, causal=causal, remat_body=ctx.remat_chunk_attn,
                              scale=scale)
 
@@ -275,8 +272,6 @@ def _attend_seq_parallel(q, k, v, causal: bool, ctx: ShardCtx, scale=None) -> to
         return attention_reference(q, k, v, causal=causal, scale=scale)
     if not isinstance(q, DTensor):
         return _attention_core(q, k, v, causal, ctx, scale)
-    from repro_torch.kernels.ops import flash_attention
-
     mesh = q.device_mesh
     m = mesh.mesh_dim_names.index(ctx.tp)
     if q.placements[m] != Shard(1) or k.placements[m] != Replicate() \
@@ -287,8 +282,9 @@ def _attend_seq_parallel(q, k, v, causal: bool, ctx: ShardCtx, scale=None) -> to
     first = local_shape_and_offset(q.shape, mesh, q.placements)[1][1]
 
     def local(ql, kl, vl):
-        return flash_attention(ql, kl, vl, causal=causal, q_offset=first if causal else 0,
-                               scale=scale).to(ql.dtype)
+        return kops.flash_attention(ql, kl, vl, causal=causal,
+                                    q_offset=first if causal else 0,
+                                    scale=scale).to(ql.dtype)
 
     return per_shard(local, out=(q.placements,),
                      ins=(q.placements, k.placements, v.placements), mesh=mesh)(q, k, v)

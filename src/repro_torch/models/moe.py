@@ -102,6 +102,31 @@ def _dispatch(xf: torch.Tensor, e_flat: torch.Tensor, Ep: int, C: int, k: int,
     return buf[:, :C], order, e_sorted, pos_c, keep
 
 
+def _capacity(moe, tokens: int, rows: bool) -> int:
+    """Each expert's slots for a pool of ``tokens``: ceil(tokens k / Ep)
+    times the capacity factor, at least 8; a row's (``rows``) padded up to
+    a multiple of 8."""
+    C = int(-(-tokens * moe.top_k // moe.n_experts_padded) * moe.capacity_factor)
+    return max(8, (C + 7) // 8 * 8) if rows else max(8, C)
+
+
+def _dispatch_rows(xr: torch.Tensor, ir: torch.Tensor, Ep: int, C: int, k: int,
+                   first: int = 0, n_local: int = None):
+    """``_dispatch`` of each row of xr (R, N, d) with its ids ir (R, N, k)
+    on its own.  Returns the buffers (R, Ep or n_local, C, d) and the
+    token-order routing tables e_tok, pos_tok, keep_tok (R, N*k) that
+    ``_combine_local`` reads."""
+    bufs, metas = [], []
+    for r in range(xr.shape[0]):
+        e_flat = ir[r].reshape(-1)
+        buf, order, _, pos_c, keep = _dispatch(xr[r], e_flat, Ep, C, k, first, n_local)
+        inv = torch.empty_like(order)
+        inv[order] = torch.arange(order.shape[0], device=xr.device)
+        bufs.append(buf)
+        metas.append((e_flat, pos_c[inv], keep[inv]))
+    return (torch.stack(bufs),) + tuple(torch.stack(m) for m in zip(*metas))
+
+
 def _experts(buf: torch.Tensor, p: Dict, cfg: ArchConfig) -> torch.Tensor:
     """(..., Ep, C, d) -> (..., Ep, C, d) through each expert's MLP."""
     if cfg.mlp == MLPKind.GATED_SILU:
@@ -162,8 +187,7 @@ def moe_mlp(
     B, S, d = x.shape
     T = B * S
     Ep, k = moe.n_experts_padded, moe.top_k
-    C = int(-(-T * k // Ep) * moe.capacity_factor)  # ceil(T*k/Ep)*cf
-    C = max(8, C)
+    C = _capacity(moe, T, rows=False)
 
     tr = TRACER
     on = tr.on
@@ -203,14 +227,14 @@ def _moe_mlp_rows(
     p: Dict, x: torch.Tensor, cfg: ArchConfig, *, with_aux: bool = True,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Row dispatch: the sort-based dispatch and combine of each batch row
-    on its own, with a per-row capacity padded to a multiple of 8; the
-    expert products batched over rows.  Each token's k gated outputs, in
-    the compute dtype, are summed over its ranks in float32."""
+    on its own (``_dispatch_rows``, ``_combine_local``), with a per-row
+    capacity padded to a multiple of 8; the expert products batched over
+    rows.  Each token's k gated outputs, in the compute dtype, are summed
+    over its ranks in float32."""
     moe = cfg.moe
     B, S, d = x.shape
     Ep, k = moe.n_experts_padded, moe.top_k
-    C = int(-(-S * k // Ep) * moe.capacity_factor)
-    C = max(8, (C + 7) // 8 * 8)
+    C = _capacity(moe, S, rows=True)
 
     tr = TRACER
     on = tr.on
@@ -220,38 +244,20 @@ def _moe_mlp_rows(
     logits, probs, gates, idx = _route(xn, p, cfg)           # idx (B, S, k)
     if on:
         tr.then("moe.dispatch")
-    bufs, metas = [], []
-    for b in range(B):
-        e_flat = idx[b].reshape(-1)
-        buf, order, _, pos_c, keep = _dispatch(xn[b], e_flat, Ep, C, k)
-        # token-order routing tables for the scatter-free combine
-        inv = torch.empty_like(order)
-        inv[order] = torch.arange(order.shape[0], device=x.device)
-        bufs.append(buf)
-        metas.append((e_flat, pos_c[inv], keep[inv]))
-    buf = torch.stack(bufs)
+    buf, e_tok, pos_tok, keep_tok = _dispatch_rows(xn, idx, Ep, C, k)
     if on:
         tr.then("moe.experts")
     out_buf = _experts(buf, p, cfg)                          # (B, Ep, C, d)
     if on:
         tr.then("moe.combine")
-    gr = gates.to(out_buf.dtype)
-    ys = []
-    for b, (e_tok, pos_tok, keep_tok) in enumerate(metas):
-        gathered = out_buf[b][e_tok, pos_tok]                # (S*k, d)
-        contrib = torch.where(keep_tok[:, None],
-                              gathered * gr[b].reshape(-1)[:, None], 0.0)
-        ys.append(_serial_sum(contrib.view(S, k, d)).to(out_buf.dtype))
-    y = torch.stack(ys)
+    y = _combine_local(out_buf, gates.to(out_buf.dtype), e_tok, pos_tok, keep_tok, 0, S, k)
     if moe.shared_d_ff:
         if on:
             tr.then("moe.shared")
         y = y + _shared(xn, p)
     if on:
         tr.close()
-    aux = {}
-    if with_aux:
-        aux = _aux(logits, probs, idx, torch.stack([m[2] for m in metas]), Ep)
+    aux = _aux(logits, probs, idx, keep_tok, Ep) if with_aux else {}
     return y, aux
 
 
@@ -283,13 +289,9 @@ def _moe_mlp_sharded(p, x, cfg, ctx, *, with_aux):
     B, S, d = x.shape
     Ep, k = moe.n_experts_padded, moe.top_k
     mesh = x.device_mesh
-    if ctx.moe_row_dispatch:
-        dp, per_row = ctx.dp, S
-        C = int(-(-S * k // Ep) * moe.capacity_factor)
-        C = max(8, (C + 7) // 8 * 8)
-    else:
-        dp, per_row = None, B * S
-        C = max(8, int(-(-B * S * k // Ep) * moe.capacity_factor))
+    rows = ctx.moe_row_dispatch
+    dp, per_row = (ctx.dp, S) if rows else (None, B * S)
+    C = _capacity(moe, per_row, rows)
     full = [Replicate()] * mesh.ndim
     tok = spec_to_placements((dp, None, None), mesh)      # (B, S, .) on dp
     tr = TRACER
@@ -313,17 +315,8 @@ def _moe_mlp_sharded(p, x, cfg, ctx, *, with_aux):
     ep = spec_to_placements((dp, ep_ax, None, None), mesh)
 
     def dispatch(xl, il):
-        xl, il = xl.reshape(-1, per_row, d), il.reshape(-1, per_row, k)
-        bufs, metas = [], []
-        for r in range(xl.shape[0]):
-            e_flat = il[r].reshape(-1)
-            buf, order, _, pos_c, keep = _dispatch(xl[r], e_flat, Ep, C, k, first, El)
-            # token-order routing tables for the combine
-            inv = torch.empty_like(order)
-            inv[order] = torch.arange(order.shape[0], device=xl.device)
-            bufs.append(buf)
-            metas.append((e_flat, pos_c[inv], keep[inv]))
-        return (torch.stack(bufs),) + tuple(torch.stack(m) for m in zip(*metas))
+        return _dispatch_rows(xl.reshape(-1, per_row, d), il.reshape(-1, per_row, k),
+                              Ep, C, k, first, El)
 
     row2 = spec_to_placements((dp, None), mesh)
     if on:

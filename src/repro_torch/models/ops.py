@@ -1,27 +1,26 @@
-"""Shared model ops: norms, rotary embeddings, attention (direct + chunked),
-the training loss.
+"""Shared model ops: norms, rotary embeddings, chunked attention, the
+training loss.
 
 ``attention_chunked`` is the plain PyTorch path (a loop over query chunks
-that never holds the full S_q x S_k score tensor).  The hand-written CUDA
-kernel in ``repro_torch.kernels`` computes the same contraction and is held
-against ``kernels.ref.attention_ref``.
+that never holds the full S_q x S_k score tensor), each chunk
+``kernels.flash_attention.attention_reference``: the flash kernel's plain
+version, which the kernel is held against on the card.
 """
 from __future__ import annotations
 
 import functools
-import math
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple, Union
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch._guards import detect_fake_mode
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.kernels.flash_attention import NEG_INF, attention_reference
 from repro_torch.launch.mesh import (local_shape_and_offset, per_shard, redistribute,
                                      spec_to_placements)
 
-NEG_INF = -1e30
 ATTENTION_IMPLS = ("kernel", "torch")
 SSM_IMPLS = ("kernel", "torch")
 
@@ -46,10 +45,14 @@ class ShardCtx:
     residual carry over the model axis on the seq dim.
 
     ``attention_impl``: "kernel" (prefill attention through
-    ``kernels.ops.flash_attention``: the CUDA kernel on a CUDA tensor, its
-    plain version on a CPU tensor) or "torch" (``attention_chunked``).
+    ``kernels.ops.flash_attention`` and decode attention through
+    ``kernels.ops.decode_attention``: the CUDA kernel on a CUDA tensor, its
+    plain version ``attention_reference`` on a CPU tensor) or "torch"
+    (``attention_chunked``, and ``attention_reference`` itself in decode).
     ``ssm_impl``: "kernel" (the mamba2 prefill scan through
-    ``kernels.ops.ssd_scan``, likewise) or "torch" (``ssm.ssd_chunked``).
+    ``kernels.ops.ssd_scan``, likewise with ``ssd_chunked``) or "torch"
+    (``kernels.ssd_scan.ssd_chunked`` itself).  Each kernel's one plain
+    version lives in its kernel module; on the CPU both routes run it.
     ``moe_row_dispatch``: route MoE tokens with a per-row capacity
     (``moe._moe_mlp_rows``) instead of one global token pool.
     ``remat_chunk_attn``: ``attention_chunked`` recomputes each query
@@ -180,48 +183,6 @@ def maybe_remat(fn, remat: bool):
         return fn
     return functools.partial(checkpoint, fn, use_reentrant=False,
                              preserve_rng_state=False)
-
-
-def attention_reference(
-    q: torch.Tensor,
-    k: torch.Tensor,
-    v: torch.Tensor,
-    *,
-    causal: bool,
-    q_offset: int = 0,
-    kv_len: Optional[Union[int, torch.Tensor]] = None,
-    scale: Optional[float] = None,
-) -> torch.Tensor:
-    """Plain softmax attention with GQA head grouping, math in float32.
-
-    q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd).  H must be a multiple of KV.
-    ``q_offset``: absolute position of q[0] (for causal masking in decode).
-    ``kv_len``: optional number of valid kv entries (cache decode); a
-    scalar, or a (B,) vector for continuous-batching decode where every
-    slot sits at its own sequence position.
-    ``scale``: the scores' factor; None divides them by sqrt(hd).
-    """
-    B, Sq, H, hd = q.shape
-    Sk, KV = k.shape[1], k.shape[2]
-    G = H // KV
-    qg = q.reshape(B, Sq, KV, G, hd).float()
-    scores = torch.einsum("bqkgh,bskh->bkgqs", qg, k.float())
-    scores = scores / math.sqrt(hd) if scale is None else scores * scale
-    mask = None  # broadcastable to (B, 1, 1, Sq, Sk)
-    if causal:
-        qpos = q_offset + torch.arange(Sq, device=q.device)
-        kpos = torch.arange(Sk, device=q.device)
-        mask = (qpos[:, None] >= kpos[None, :])[None, None, None]
-    if kv_len is not None:
-        kv_len = torch.as_tensor(kv_len, device=q.device).reshape(-1)
-        valid = torch.arange(Sk, device=q.device)[None, :] < kv_len[:, None]
-        valid = valid[:, None, None, None, :]       # (B|1, 1, 1, 1, Sk)
-        mask = valid if mask is None else mask & valid
-    if mask is not None:
-        scores = scores.masked_fill(~mask, NEG_INF)
-    w = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bkgqs,bskh->bqkgh", w, v.float())
-    return out.reshape(B, Sq, H, hd).to(q.dtype)
 
 
 def attention_chunked(

@@ -5,10 +5,11 @@ Port of ``repro.models.ssm``.  Both blocks have a full-sequence path
 (training / prefill) and an O(1) recurrent decode step.  The mamba2
 full-sequence path runs the SSD scan either through
 ``kernels.ops.ssd_scan`` (``ssm_impl="kernel"``: the CUDA kernel on a CUDA
-tensor, its plain version on a CPU tensor) or through ``ssd_chunked``
-(``ssm_impl="torch"``, the chunked algorithm in plain PyTorch).  The mamba1
-scan has no kernel in the reference either (an ``associative_scan`` in XLA
-code): here it is the same log-depth scan in plain PyTorch.
+tensor, its plain version on a CPU tensor) or through that plain version
+itself, ``kernels.ssd_scan.ssd_chunked`` (``ssm_impl="torch"``, the
+chunked algorithm in plain PyTorch).  The mamba1 scan has no kernel in the
+reference either (an ``associative_scan`` in XLA code): here it is the
+same log-depth scan in plain PyTorch.
 
 Sharded (DTensor parameters, ``ctx.enabled``): each block gathers its
 weights over the FSDP axes (``ShardCtx.gather``).  The mamba1 scan is
@@ -16,7 +17,8 @@ channel-local under the ``d_inner`` rule: it runs per shard in
 ``local_map`` with x, dt and A sharded on ``d_inner`` and ``Bc``/``Cc``
 replicated over the model axis (their gradient a partial sum over it).
 The mamba2 scan is head-local under the ``ssm_heads`` rule: the kernel's
-DTensor strategy, or DTensor's own rules for ``ssd_chunked``, run it.
+DTensor strategy runs it, or ``ssd_chunked`` runs per shard under the
+same placements.
 """
 from __future__ import annotations
 
@@ -26,6 +28,8 @@ import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels.ssd_scan import ssd_chunked
 from repro_torch.launch.mesh import per_shard, redistribute, spec_to_placements
 from repro_torch.obs.trace import TRACER
 
@@ -159,10 +163,8 @@ def _ssd_chunked_sharded(x, dt, A, Bc, Cc, chunk: int):
     """``ssd_chunked`` per shard, under the placements the kernel's
     sharding strategy takes (``kernels.ops.ssd_out_placements``): rows over
     the batch axes, heads over the model axis."""
-    from repro_torch.kernels.ops import ssd_out_placements
-
     args = (x, dt, A, Bc, Cc)
-    return per_shard(lambda *a: ssd_chunked(*a, chunk), out=ssd_out_placements(*args),
+    return per_shard(lambda *a: ssd_chunked(*a, chunk), out=kops.ssd_out_placements(*args),
                      ins=tuple(t.placements for t in args), mesh=x.device_mesh)(*args)
 
 
@@ -226,76 +228,6 @@ def mamba1_block(p: Dict, x: torch.Tensor, cfg: ArchConfig, ctx: ShardCtx,
 # ---------------------------------------------------------------------------
 
 
-def segsum(dtA: torch.Tensor) -> torch.Tensor:
-    """Lower-triangular cumulative decay: out[..., i, j] = sum_{j<k<=i} dtA_k
-    for j <= i, -inf otherwise.  dtA: (..., Q)."""
-    Q = dtA.shape[-1]
-    cs = torch.cumsum(dtA, dim=-1)
-    diff = cs[..., :, None] - cs[..., None, :]
-    mask = torch.ones(Q, Q, dtype=torch.bool, device=dtA.device).tril()
-    return diff.masked_fill(~mask, float("-inf"))
-
-
-def _ssd_intra(L, scores, dtc, xc):
-    """y_intra = sum_k L[h,q,k] * scores[q,k] * dt[k,h] * x[k,h,p]."""
-    w = L * scores[:, :, None, :, :]                       # (B,nc,nh,Q,Q)
-    wdt = w * dtc.permute(0, 1, 3, 2)[:, :, :, None, :]    # * dt_k
-    return torch.einsum("bchqk,bckhp->bcqhp", wdt, xc)
-
-
-def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
-                Bc: torch.Tensor, Cc: torch.Tensor, chunk: int,
-                h0: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Mamba2 SSD, chunked.  x: (B,S,nh,hp); dt: (B,S,nh); A: (nh,) (<0);
-    Bc, Cc: (B,S,n) (shared across heads).  Returns (y, h_final (B,nh,hp,n)).
-    """
-    B_, S, nh, hp = x.shape
-    n = Bc.shape[-1]
-    S0 = S
-    if S % chunk:
-        # pad to a chunk multiple: padded steps have dt = 0, so exp(dt*A) = 1
-        # and dt*B*x = 0 — the state passes through unchanged.
-        pad = chunk - S % chunk
-        x = F.pad(x, (0, 0, 0, 0, 0, pad))
-        dt = F.pad(dt, (0, 0, 0, pad))
-        Bc = F.pad(Bc, (0, 0, 0, pad))
-        Cc = F.pad(Cc, (0, 0, 0, pad))
-        S = S + pad
-    nc = S // chunk
-
-    xc = x.reshape(B_, nc, chunk, nh, hp)
-    dtc = dt.reshape(B_, nc, chunk, nh)
-    Bcc = Bc.reshape(B_, nc, chunk, n)
-    Ccc = Cc.reshape(B_, nc, chunk, n)
-    dtA = dtc * A                                          # (B,nc,Q,nh)
-
-    # intra-chunk (quadratic within chunk)
-    L = torch.exp(segsum(dtA.transpose(-1, -2)))           # (B,nc,nh,Q,Q)
-    scores = torch.einsum("bcqn,bckn->bcqk", Ccc, Bcc)     # (B,nc,Q,Q)
-    y_intra = _ssd_intra(L, scores, dtc, xc)
-
-    # chunk state: S_c = sum_k exp(sum_{j>k} dtA_j) dt_k B_k x_k
-    dtA_cum = torch.cumsum(dtA, dim=2)                     # (B,nc,Q,nh)
-    decay_to_end = torch.exp(dtA_cum[:, :, -1:, :] - dtA_cum)
-    states = torch.einsum("bcqh,bcqh,bcqn,bcqhp->bchpn",
-                          decay_to_end, dtc, Bcc, xc)      # (B,nc,nh,hp,n)
-
-    # inter-chunk recurrence (sequential over nc, nc is small)
-    chunk_decay = torch.exp(dtA_cum[:, :, -1, :])          # (B,nc,nh)
-    h = torch.zeros(B_, nh, hp, n, dtype=x.dtype, device=x.device) if h0 is None else h0
-    h_prevs = []
-    for c in range(nc):
-        h_prevs.append(h)                                  # state BEFORE chunk
-        h = h * chunk_decay[:, c, :, None, None] + states[:, c]
-    h_prevs = torch.stack(h_prevs, dim=1)                  # (B,nc,nh,hp,n)
-
-    # inter-chunk contribution: y_inter[q] = exp(dtA_cum[q]) C_q . h_prev
-    in_decay = torch.exp(dtA_cum)                          # (B,nc,Q,nh)
-    y_inter = torch.einsum("bcqn,bchpn,bcqh->bcqhp", Ccc, h_prevs, in_decay)
-    y = (y_intra + y_inter).reshape(B_, S, nh, hp)[:, :S0]
-    return y, h
-
-
 def mamba2_block(p: Dict, x: torch.Tensor, cfg: ArchConfig, ctx: ShardCtx,
                  cache: Optional[Dict] = None, return_state: bool = False,
                  out_scale: float = 1.0) -> Tuple[torch.Tensor, Optional[Dict]]:
@@ -340,9 +272,7 @@ def mamba2_block(p: Dict, x: torch.Tensor, cfg: ArchConfig, ctx: ShardCtx,
         if on:
             TRACER.open("ssm.scan")
         if ctx.ssm_impl == "kernel":
-            from repro_torch.kernels.ops import ssd_scan
-
-            y, h_fin = ssd_scan(*args, chunk=ssm.chunk)
+            y, h_fin = kops.ssd_scan(*args, chunk=ssm.chunk)
         else:
             scan = _ssd_chunked_sharded if isinstance(xh, DTensor) else ssd_chunked
             y, h_fin = scan(*args, ssm.chunk)

@@ -21,9 +21,8 @@ from repro_torch.kernels import (
     reset_launches,
     ssd_scan,
 )
-from repro_torch.kernels.decode_attention import decode_attention_plain
-from repro_torch.kernels.flash_attention import flash_attention_plain
-from repro_torch.kernels.ssd_scan import ssd_scan_plain
+from repro_torch.kernels.flash_attention import attention_reference
+from repro_torch.kernels.ssd_scan import ssd_chunked
 
 pytestmark = pytest.mark.cuda
 
@@ -53,7 +52,7 @@ def test_kernel_matches_plain_on_card(card, B, Sq, Sk, H, KV, hd, causal, dtype)
     out = flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert LAUNCHES["flash_attention"] == 1
-    ref = flash_attention_plain(q, k, v, causal=causal)
+    ref = attention_reference(q, k, v, causal=causal)
     tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
 
@@ -65,7 +64,7 @@ def _flash_check(card, B, Sq, Sk, H, KV, hd, causal, dtype, seed):
     v = torch.randn(B, Sk, KV, hd, generator=g, device=card).to(dtype)
     out = flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
-    ref = flash_attention_plain(q, k, v, causal=causal)
+    ref = attention_reference(q, k, v, causal=causal)
     tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
 
@@ -86,9 +85,9 @@ def test_kernel_causal_query_slice_on_card(card, Sq, Sk, q_offset, dtype):
     out = flash_attention(rows, k, v, causal=True, q_offset=q_offset)
     torch.cuda.synchronize()
     tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
-    ref = flash_attention_plain(rows, k, v, causal=True, q_offset=q_offset)
+    ref = attention_reference(rows, k, v, causal=True, q_offset=q_offset)
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
-    square = flash_attention_plain(q, k, v, causal=True)[:, q_offset:q_offset + Sq]
+    square = attention_reference(q, k, v, causal=True)[:, q_offset:q_offset + Sq]
     torch.testing.assert_close(out.float(), square.float(), atol=tol, rtol=tol)
 
 
@@ -125,7 +124,7 @@ def test_flash_kernel_takes_the_scale_on_card(card, S, dtype):
     v = torch.randn(1, S, 8, 128, generator=g, device=card).to(dtype)
     out = flash_attention(q, k, v, causal=True, scale=1 / 128)
     torch.cuda.synchronize()
-    ref = flash_attention_plain(q, k, v, causal=True, scale=1 / 128)
+    ref = attention_reference(q, k, v, causal=True, scale=1 / 128)
     tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
     default = flash_attention(q, k, v, causal=True)
@@ -138,8 +137,8 @@ def test_kernel_reads_strided_views(card):
     qkv = torch.randn(2, 200, 8 + 2 * 2, 64, generator=g, device=card)
     q, k, v = qkv[:, :, :8], qkv[:, :, 8:10], qkv[:, :, 10:]
     out = flash_attention(q, k, v, causal=True)
-    ref = flash_attention_plain(q.contiguous(), k.contiguous(), v.contiguous(),
-                                causal=True)
+    ref = attention_reference(q.contiguous(), k.contiguous(), v.contiguous(),
+                              causal=True)
     torch.testing.assert_close(out, ref, atol=2e-5, rtol=2e-5)
 
 
@@ -154,8 +153,8 @@ def test_bf16_kernel_reads_strided_views(card, offset):
     qkv = flat[offset:].view(B, S, H + 2 * KV, hd)
     q, k, v = qkv[:, :, :H], qkv[:, :, H:H + KV], qkv[:, :, H + KV:]
     out = flash_attention(q, k, v, causal=True)
-    ref = flash_attention_plain(q.contiguous(), k.contiguous(), v.contiguous(),
-                                causal=True)
+    ref = attention_reference(q.contiguous(), k.contiguous(), v.contiguous(),
+                              causal=True)
     torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=2e-2)
 
 
@@ -201,7 +200,7 @@ def test_decode_kernel_matches_plain_on_card(card, B, Sk, H, KV, hd, lens, dtype
     out = decode_attention(q, k, v, kv_len)
     torch.cuda.synchronize()
     assert LAUNCHES["decode_attention"] == 1
-    _decode_close(out, decode_attention_plain(q, k, v, kv_len))
+    _decode_close(out, attention_reference(q, k, v, causal=False, kv_len=kv_len))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -219,7 +218,8 @@ def test_decode_kernel_takes_the_scale_on_card(card, dtype):
     kv_len[0], kv_len[-1] = 1, Sk
     out = decode_attention(q, k, v, kv_len, scale=1 / 128)
     torch.cuda.synchronize()
-    _decode_close(out, decode_attention_plain(q, k, v, kv_len, scale=1 / 128))
+    _decode_close(out, attention_reference(q, k, v, causal=False, kv_len=kv_len,
+                                            scale=1 / 128))
     default = decode_attention(q, k, v, kv_len)
     assert float((default.float() - out.float()).abs().max()) > 0.1
 
@@ -375,7 +375,7 @@ def test_ssd_kernel_matches_plain_on_card(card, B, S, nh, hp, n, chunk, dtype):
     torch.cuda.synchronize()
     assert LAUNCHES["ssd_scan"] == 1
     assert all(t.dtype == torch.float32 for t in out)
-    _ssd_close(out, ssd_scan_plain(x, dt, A, Bc, Cc, chunk=chunk), dtype)
+    _ssd_close(out, ssd_chunked(x, dt, A, Bc, Cc, chunk), dtype)
 
 
 @pytest.mark.parametrize("S", [2048, 3000])
@@ -387,7 +387,7 @@ def test_ssd_kernel_at_granite_4_h_shape_on_card(card, S, dtype):
     x, dt, Bc, Cc = (t.to(dtype) for t in (x, dt, Bc, Cc))
     out = ssd_scan(x, dt, A, Bc, Cc, chunk=256)
     torch.cuda.synchronize()
-    _ssd_close(out, ssd_scan_plain(x, dt, A, Bc, Cc, chunk=256), dtype)
+    _ssd_close(out, ssd_chunked(x, dt, A, Bc, Cc, 256), dtype)
 
 
 def test_ssd_kernel_reads_strided_views(card):
@@ -400,7 +400,7 @@ def test_ssd_kernel_reads_strided_views(card):
     dt = 0.05 * torch.rand(B, S, 2 * nh, generator=g, device=card)[..., ::2]
     A = -torch.arange(1, nh + 1, dtype=torch.float32, device=card)
     out = ssd_scan(x, dt, A, Bc, Cc, chunk=64)
-    ref = ssd_scan_plain(*(t.contiguous() for t in (x, dt, A, Bc, Cc)), chunk=64)
+    ref = ssd_chunked(*(t.contiguous() for t in (x, dt, A, Bc, Cc)), 64)
     _ssd_close(out, ref, torch.float32)
 
 

@@ -30,11 +30,12 @@ from portbench.run import load_module
 from portbench.yardstick.weights import draw
 from repro_torch.configs.granite_4_0_h_small import ARCH as PUBLISHED
 from repro_torch.configs.registry import ARCHS
+from repro_torch.kernels.flash_attention import attention_reference
 from repro_torch.kernels.ops import decode_attention, flash_attention
 from repro_torch.models.config import CellTuning, Family
 from repro_torch.models.model import cache_schema
 from repro_torch.models.moe import moe_mlp
-from repro_torch.models.ops import NOSHARD, attention_reference
+from repro_torch.models.ops import NOSHARD
 from repro_torch.models.schema import build_schema
 from repro_torch.models.sharding import map_schema
 from repro_torch.obs.trace import TRACER

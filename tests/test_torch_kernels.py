@@ -1,5 +1,8 @@
-"""The port's kernels on the CPU (each kernel's plain version) against the
-JAX package's Pallas kernels in interpret mode, on the same numpy inputs.
+"""The port's kernels on the CPU (each operator's CPU route is its kernel
+module's one plain version: ``attention_reference`` for both attention
+operators, ``ssd_chunked`` for the scan, equal to it bit for bit) against
+the JAX package's Pallas kernels in interpret mode, on the same numpy
+inputs.
 
 Flash attention: the tolerances of tests/test_kernels.py, f32 2e-5
 (summation order differs), bf16 2e-2 (both sides take the same bf16 inputs
@@ -16,8 +19,8 @@ bf16 once: within one bf16 ulp at |o| < 1).
 
 SSD scan: f32 5e-4 and bf16 5e-2, as tests/test_kernels.py holds the TPU
 kernel to its oracle (float32 cumulative sums over a chunk, exponentiated,
-in another order); 1e-4 against the port's own oracle and chunked path, as
-tests/test_kernels.py pins the kernel to the chunked path.
+in another order); ``ssd_chunked`` at 1e-4 against the port's own step
+oracle, as tests/test_kernels.py pins the kernel to the chunked path.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -35,14 +38,9 @@ from repro_torch.kernels import (
     ssd_scan,
 )
 from repro_torch.kernels.decode_attention import decode_attention_cuda
-from repro_torch.kernels.flash_attention import (
-    flash_attention_cuda,
-    flash_attention_plain,
-)
+from repro_torch.kernels.flash_attention import attention_reference, flash_attention_cuda
 from repro_torch.kernels.ref import attention_ref, ssd_ref
-from repro_torch.models.ops import attention_reference
-from repro_torch.kernels.ssd_scan import ssd_scan_cuda, ssd_scan_plain
-from repro_torch.models.ssm import ssd_chunked
+from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_scan_cuda
 
 # the shape list of tests/test_kernels.py: (B, S, H, KV, hd)
 ATTN_SHAPES = [
@@ -111,7 +109,7 @@ def test_plain_version_matches_naive_oracle(causal):
     """The plain version against the port's independent oracle."""
     q, k, v = (torch.from_numpy(a) for a in _inputs(2, 80, 80, 6, 2, 16, seed=7))
     np.testing.assert_allclose(
-        flash_attention_plain(q, k, v, causal=causal).numpy(),
+        attention_reference(q, k, v, causal=causal).numpy(),
         attention_ref(q, k, v, causal=causal).numpy(), atol=2e-5, rtol=2e-5)
 
 
@@ -303,7 +301,7 @@ def test_ssd_scan_matches_jax_kernel(B, S, nh, hp, n, chunk, dtype):
 @pytest.mark.parametrize("B,S,nh,hp,n,chunk", SSD_SHAPES)
 def test_ssd_plain_matches_sequential_oracle(B, S, nh, hp, n, chunk):
     args = [torch.from_numpy(a) for a in _ssd_inputs(B, S, nh, hp, n, seed=7)]
-    y, h = ssd_scan_plain(*args, chunk=chunk)
+    y, h = ssd_chunked(*args, chunk)
     yr, hr = ssd_ref(*args)
     np.testing.assert_allclose(y.numpy(), yr.numpy(), atol=1e-4, rtol=1e-4)
     np.testing.assert_allclose(h.numpy(), hr.numpy(), atol=1e-4, rtol=1e-4)
@@ -313,7 +311,7 @@ def test_ssd_plain_matches_sequential_oracle_at_granite_4_h_ratios():
     """granite-4.0-h-small's scan cut in width: a state twice the head
     dim, many heads, several chunks with a ragged last one."""
     args = [torch.from_numpy(a) for a in _ssd_inputs(1, 300, 16, 8, 16, seed=11)]
-    y, h = ssd_scan_plain(*args, chunk=64)
+    y, h = ssd_chunked(*args, 64)
     yr, hr = ssd_ref(*args)
     np.testing.assert_allclose(y.numpy(), yr.numpy(), atol=1e-4, rtol=1e-4)
     np.testing.assert_allclose(h.numpy(), hr.numpy(), atol=1e-4, rtol=1e-4)
@@ -321,11 +319,12 @@ def test_ssd_plain_matches_sequential_oracle_at_granite_4_h_ratios():
 
 @pytest.mark.parametrize("S,chunk", [(128, 32), (100, 32), (20, 64)])
 def test_ssd_plain_matches_chunked_path(S, chunk):
+    """The operator's CPU route is ``ssd_chunked``, bit for bit, a ragged
+    last chunk (and one chunk longer than S) included."""
     args = [torch.from_numpy(a) for a in _ssd_inputs(2, S, 4, 16, 8, seed=9)]
-    y1, h1 = ssd_scan_plain(*args, chunk=chunk)
+    y1, h1 = ssd_scan(*args, chunk=chunk)
     y2, h2 = ssd_chunked(*args, chunk)
-    np.testing.assert_allclose(y1.numpy(), y2.numpy(), atol=1e-4, rtol=1e-4)
-    np.testing.assert_allclose(h1.numpy(), h2.numpy(), atol=1e-4, rtol=1e-4)
+    assert torch.equal(y1, y2) and torch.equal(h1, h2)
 
 
 def test_ssd_ragged_chunk_equals_dt0_padding():
@@ -334,12 +333,37 @@ def test_ssd_ragged_chunk_equals_dt0_padding():
     x, dt, A, Bc, Cc = _ssd_inputs(1, 45, 3, 8, 4, seed=3)
     pad = [(0, 0), (0, 19)]
     padded = [np.pad(a, pad + [(0, 0)] * (a.ndim - 2)) for a in (x, dt, Bc, Cc)]
-    y, h = ssd_scan_plain(*(torch.from_numpy(a) for a in (x, dt, A, Bc, Cc)), chunk=16)
-    yp, hp_ = ssd_scan_plain(*(torch.from_numpy(a) for a in padded[:2]),
-                             torch.from_numpy(A),
-                             *(torch.from_numpy(a) for a in padded[2:]), chunk=16)
+    y, h = ssd_chunked(*(torch.from_numpy(a) for a in (x, dt, A, Bc, Cc)), 16)
+    yp, hp_ = ssd_chunked(*(torch.from_numpy(a) for a in padded[:2]),
+                          torch.from_numpy(A),
+                          *(torch.from_numpy(a) for a in padded[2:]), 16)
     np.testing.assert_allclose(y.numpy(), yp[:, :45].numpy(), atol=1e-6, rtol=1e-6)
     np.testing.assert_allclose(h.numpy(), hp_.numpy(), atol=1e-6, rtol=1e-6)
+
+
+def _operator_and_plain(op):
+    """(the operator's CPU outputs, its plain version's) on one input:
+    causal GQA flash with a scale, decode over ragged lengths, an SSD scan
+    with a ragged last chunk in bfloat16."""
+    q, k, v = (torch.from_numpy(a) for a in _inputs(2, 40, 40, 6, 2, 16, seed=12))
+    if op == "flash":
+        return ((flash_attention(q, k, v, causal=True, scale=0.3),),
+                (attention_reference(q, k, v, causal=True, scale=0.3),))
+    if op == "decode":
+        lens = torch.tensor([1, 40], dtype=torch.int32)
+        return ((decode_attention(q[:, :1], k, v, lens),),
+                (attention_reference(q[:, :1], k, v, causal=False, kv_len=lens),))
+    args = [torch.from_numpy(a) for a in _ssd_inputs(2, 70, 3, 8, 5, seed=12)]
+    args = [a if i == 2 else a.to(torch.bfloat16) for i, a in enumerate(args)]
+    return ssd_scan(*args, chunk=16), ssd_chunked(*args, 16)
+
+
+@pytest.mark.parametrize("op", ["flash", "decode", "ssd"])
+def test_operator_cpu_route_is_its_plain_version(op):
+    """Each operator's CPU implementation is its kernel module's one plain
+    version: the same function, so the same bits."""
+    for ours, plain in zip(*_operator_and_plain(op)):
+        assert ours.dtype == plain.dtype and torch.equal(ours, plain)
 
 
 def test_ssd_kernel_wrapper_refuses_cpu_tensors():

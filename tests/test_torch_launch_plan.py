@@ -363,7 +363,7 @@ def test_kernel_operators_count_on_fakes(device):
     assert t.flops == 4 * 2 * 4 * 96 * 96 * 16
     assert t.bytes == 4 * (2 * 96 * 4 * 16 * 2 + 2 * 2 * 96 * 2 * 16)
     t = cost.analyze(lambda *a: ssd_scan(*a, chunk=64), x, dt, A, Bc, Bc)
-    from repro_torch.models.ssm import ssd_chunked
+    from repro_torch.kernels.ssd_scan import ssd_chunked
 
     with FlopCounterMode(display=False) as plain:      # the torch route, real
         ssd_chunked(*(torch.randn(tuple(a.shape)) for a in (x, dt, A, Bc, Bc)), 64)

@@ -33,6 +33,7 @@ from repro.models.sharding import init_from_schema as jax_init
 from repro.models.testing import reduced as jax_reduced
 from repro.train.steps import make_prefill_step as jax_prefill_step
 from repro_torch.configs.registry import ARCHS
+from repro_torch.kernels.flash_attention import attention_reference
 from repro_torch.models import model as tm
 from repro_torch.models import ops as tops
 from repro_torch.models.convert import params_from_numpy
@@ -156,7 +157,7 @@ def test_attention_reference_matches(kv_len, causal):
     v = rng.standard_normal((3, 12, 2, 16), dtype=np.float32)
     if kv_len == "vector":    # (B,) per-slot lengths of continuous batching
         kv_len = np.array([3, 12, 7], np.int32)
-    ours = tops.attention_reference(
+    ours = attention_reference(
         _t(q), _t(k), _t(v), causal=causal, q_offset=5,
         kv_len=None if kv_len is None else torch.as_tensor(kv_len))
     ref = jops.attention_reference(

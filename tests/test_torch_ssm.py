@@ -25,6 +25,7 @@ from repro.models.testing import reduced as jax_reduced
 from repro_torch.configs.registry import ARCHS
 from repro_torch.kernels import ssd_scan
 from repro_torch.kernels.ref import ssd_ref
+from repro_torch.kernels.ssd_scan import segsum, ssd_chunked
 from repro_torch.models import ssm as tssm
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.models.ops import ShardCtx
@@ -75,7 +76,7 @@ def test_conv_step_matches():
 
 def test_segsum_matches():
     dtA = -np.abs(np.random.default_rng(2).standard_normal((3, 9), dtype=np.float32))
-    ours = tssm.segsum(_t(dtA)).numpy()
+    ours = segsum(_t(dtA)).numpy()
     ref = np.asarray(jssm.segsum(dtA))
     np.testing.assert_array_equal(np.isinf(ours), np.isinf(ref))
     live = ~np.isinf(ref)
@@ -85,7 +86,7 @@ def test_segsum_matches():
 @pytest.mark.parametrize("S,chunk", [(128, 32), (100, 32), (20, 64)])
 def test_ssd_chunked_matches_jax(S, chunk):
     args = _ssd_inputs(2, S, 4, 16, 8, seed=S)
-    y, h = tssm.ssd_chunked(*(_t(a) for a in args), chunk)
+    y, h = ssd_chunked(*(_t(a) for a in args), chunk)
     yj, hj = jssm.ssd_chunked(*(jnp.asarray(a) for a in args), chunk=chunk)
     _close(y, yj, **SSD_TOL)
     _close(h, hj, **SSD_TOL)
@@ -103,7 +104,7 @@ def test_ssd_state_handoff_to_decode(scan):
     if scan == "kernel":
         _, h = ssd_scan(*first, chunk=32)
     else:
-        _, h = tssm.ssd_chunked(*first, 32)
+        _, h = ssd_chunked(*first, 32)
     dt_l = dt[:, S]
     upd = torch.einsum("bh,bhp,bn->bhpn", dt_l, x[:, S], Bc[:, S])
     h_next = h * torch.exp(dt_l * A)[..., None, None] + upd
