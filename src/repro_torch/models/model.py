@@ -397,9 +397,11 @@ def _dense_stack(params, h, cfg, ctx, cache, *, mode, with_aux, remat=False):
             vs.append(v)
     new_cache = None
     if mode == PREFILL:
+        # filled on the device: a host copy would sync, and a CUDA graph
+        # cannot capture it
         new_cache = {"k": torch.stack(ks), "v": torch.stack(vs),
-                     "pos": torch.tensor(h.shape[1], dtype=torch.int32,
-                                         device=h.device)}
+                     "pos": torch.full((), h.shape[1], dtype=torch.int32,
+                                       device=h.device)}
     elif mode == DECODE:
         # k/v were updated in place
         new_cache = {"k": cache["k"], "v": cache["v"], "pos": pos0 + 1}

@@ -20,8 +20,12 @@ admission overwrites, as in ``repro.serve.engine``.
 The decode step always runs all B slots at fixed shapes, so on one card
 (a CUDA device, plain parameters) ``DecodeGraph`` captures it once as a
 CUDA graph and replays it every tick: the host launches one graph where
-the eager step launches thousands of kernels.  On the CPU, or with a
-mesh's DTensor parameters, every tick runs the eager step.
+the eager step launches thousands of kernels.  An admission's B=1 prefill
+changes shape with every prompt; where the cache holds only K/V and a
+prompt padded at its end prefills as the prompt alone (``pads_safely``),
+``PrefillGraphs`` pads it to a multiple of ``PREFILL_BUCKET`` tokens and
+replays one graph per such length, up to ``PREFILL_GRAPH_MAX``.  On the
+CPU, or with a mesh's DTensor parameters, every step runs eagerly.
 
 While ``repro_torch.obs.trace.TRACER`` is on (enabled, or a
 ``torch.profiler`` trace active at the tick's start), each tick records
@@ -32,8 +36,10 @@ its spans on the host clock (``time.perf_counter``)::
     │                       the sum over every slot of pos + 1; 0 without a step)
     ├── serve.admit         one an admission: request_id, slot, prompt_len,
     │   │                   queued_s (submit() to the prefill's start)
-    │   ├── serve.prefill.enqueue   the prefill step returning, then the slot write
+    │   ├── serve.prefill.enqueue   the prefill step returning, then the slot write;
+    │   │   │                       graph (1: the step replayed, 0: it ran eagerly)
     │   │   ├── layer.attn, moe.route, moe.dispatch, moe.experts, moe.combine
+    │   │   │                       (none in a replay)
     │   │   └── serve.write_slot
     │   └── serve.prefill.wait      the read of the first token
     ├── serve.decode.enqueue        the step's inputs and the decode step returning;
@@ -95,12 +101,77 @@ class EngineStats:
     prefill_tokens: int = 0
     prefill_s: float = field(default=0.0, compare=False)
     decode_s: float = field(default=0.0, compare=False)
-    # decode steps that replayed the captured graph (0 on the eager path)
+    # decode steps and prefills that replayed a captured graph (0 on the
+    # eager path)
     decode_graph_replays: int = 0
+    prefill_graph_replays: int = 0
 
     @property
     def occupancy_tokens_per_tick(self) -> float:
         return self.decoded_tokens / self.ticks if self.ticks else 0.0
+
+
+# an admission's prefill is padded to a multiple of PREFILL_BUCKET tokens
+# and replayed as a graph up to PREFILL_GRAPH_MAX tokens; longer prompts
+# keep the device busy eagerly
+PREFILL_BUCKET = 128
+PREFILL_GRAPH_MAX = 2048
+
+
+def prefill_bucket(seq_len: int) -> int:
+    """The length a prompt of ``seq_len`` tokens is padded to: the next
+    multiple of ``PREFILL_BUCKET``."""
+    return -(-seq_len // PREFILL_BUCKET) * PREFILL_BUCKET
+
+
+def pads_safely(cfg: ArchConfig, schema) -> bool:
+    """Whether a prompt padded at its end prefills to the same cache rows
+    and last-position logits as the prompt alone, for a model ``cfg`` whose
+    decode cache has the leaves of ``schema``.  Only a cache of K/V alone
+    (the causal decoders) does: a state lane would run on through the
+    padding, and a cross K/V is not the prompt's.  A MoE must also drop no
+    token at any length (capacity factor times top-k covers every expert):
+    where its capacity binds, the padded pool's larger capacity keeps
+    tokens that the prompt alone drops."""
+    moe = cfg.moe
+    dropless = moe is None or moe.capacity_factor * moe.top_k >= moe.n_experts_padded
+    return set(schema) == {"k", "v", "pos"} and dropless
+
+
+def _run_on(side, fn):
+    """``fn()`` on the stream ``side``, after the current stream's work
+    so far and before its later work."""
+    current = torch.cuda.current_stream(side.device)
+    side.wait_stream(current)
+    with torch.cuda.stream(side):
+        out = fn()
+    current.wait_stream(side)
+    return out
+
+
+def _capture(fn, side, pool=None):
+    """``fn()`` captured as one CUDA graph on the stream ``side``, in the
+    memory pool ``pool`` where given, with ``TRACER`` off.  A capture runs
+    nothing, so the kernel calls it counts in ``LAUNCHES`` are taken back
+    out.  Returns (graph, ``fn``'s outputs, the kernel calls of one
+    replay)."""
+    graph = torch.cuda.CUDAGraph()
+    before, on = dict(LAUNCHES), TRACER.on
+    TRACER.on = False
+    try:
+        with torch.cuda.graph(graph, pool=pool, stream=side):
+            out = fn()
+    finally:
+        TRACER.on = on
+        launches = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+        LAUNCHES.update(before)
+    return graph, out, launches
+
+
+def _replay(graph, launches) -> None:
+    graph.replay()
+    for name, n in launches.items():
+        LAUNCHES[name] += n
 
 
 class DecodeGraph:
@@ -146,26 +217,16 @@ class DecodeGraph:
         return not isinstance(param, DTensor) and param.is_cuda
 
     def _capture(self, params, cache, tokens):
-        device = tokens.device
         self._tokens, self._pos = tokens.clone(), cache["pos"].clone()
         static = dict(cache, pos=self._pos)
-        side = torch.cuda.Stream(device)
-        side.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(side):
-            out = self.step(params, static, self._tokens)
-        torch.cuda.current_stream(device).wait_stream(side)
 
-        graph = torch.cuda.CUDAGraph()
-        before, on = dict(LAUNCHES), TRACER.on
-        TRACER.on = False
-        try:
-            with torch.cuda.graph(graph, stream=side):
-                self._out = self.step(params, static, self._tokens)
-        finally:
-            TRACER.on = on
-            self._launches = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
-            LAUNCHES.update(before)
-        self._cuda_graph, self._params = graph, params
+        def step():
+            return self.step(params, static, self._tokens)
+
+        side = torch.cuda.Stream(tokens.device)
+        out = _run_on(side, step)
+        self._cuda_graph, self._out, self._launches = _capture(step, side)
+        self._params = params
         self._leaves = {k: v for k, v in cache.items() if k != "pos"}
         return out
 
@@ -176,11 +237,84 @@ class DecodeGraph:
                                "or cache tensors")
         self._tokens.copy_(tokens)
         self._pos.copy_(cache["pos"])
-        self._cuda_graph.replay()
-        for name, n in self._launches.items():
-            LAUNCHES[name] += n
+        _replay(self._cuda_graph, self._launches)
         self.replays += 1
         return self._out
+
+
+class PrefillGraphs:
+    """The B=1 prefill step ``(params, batch) -> (logits, cache)``, replayed
+    as CUDA graphs at bucketed prompt lengths where ``pads`` (the model's
+    ``pads_safely``) and the parameters are plain tensors on a CUDA device
+    (``DecodeGraph.graphable``); elsewhere, and for a prompt longer than
+    ``PREFILL_GRAPH_MAX`` once padded, the eager step.
+
+    A prompt of S tokens is padded with token 0 at its end to
+    ``Sb = prefill_bucket(S)``, and the step reads the logits at position
+    S - 1 (``last``).  A bucket's first prompt runs the padded step eagerly
+    on a side stream, as ``DecodeGraph`` does, which is that prompt's
+    prefill; the step is then captured on static buffers for the tokens
+    (1, Sb) and ``last`` (1,).  Every later prompt of the bucket is copied
+    into them and replayed.  The logits (1, Vp) and the cache, whose
+    sequence leaves hold Sb rows of which the first S are the prompt's,
+    are the graph's outputs.  All buckets' graphs share one memory pool,
+    sized by the largest bucket's step rather than by their sum, so a
+    replay may overwrite any bucket's outputs: read them (the first token)
+    and copy them out (the slot write) before the next replay.  A call
+    with other parameters than the first capture's raises."""
+
+    def __init__(self, step, pads: bool):
+        self.step = step
+        self.pads = pads
+        self.replays = 0
+        self._graphed: Optional[bool] = None     # decided at the first call
+        self._buckets = {}      # Sb -> (graph, outputs, launches, tokens, last)
+        self._side = self._pool = self._params = None
+
+    def graphed(self, params, seq_len: int) -> bool:
+        """Whether a prompt of ``seq_len`` tokens prefills through a graph."""
+        if self._graphed is None:
+            self._graphed = self.pads and DecodeGraph.graphable(leaves(params)[0])
+        return self._graphed and prefill_bucket(seq_len) <= PREFILL_GRAPH_MAX
+
+    def __call__(self, params, batch):
+        tokens = batch["tokens"]
+        if not self.graphed(params, tokens.shape[1]):
+            return self.step(params, batch)
+        Sb = prefill_bucket(tokens.shape[1])
+        if self._params is None:
+            self._params = params
+            self._side = torch.cuda.Stream(tokens.device)
+            self._pool = torch.cuda.graph_pool_handle()
+        elif params is not self._params:
+            raise RuntimeError("the prefill graphs were captured on other parameters")
+        bucket = self._buckets.get(Sb)
+        if bucket is None:
+            return self._capture(params, tokens, Sb)
+        graph, out, launches, toks, last = bucket
+        self._fill(toks, last, tokens)
+        _replay(graph, launches)
+        self.replays += 1
+        return out
+
+    @staticmethod
+    def _fill(toks, last, tokens) -> None:
+        S = tokens.shape[1]
+        toks[:, :S].copy_(tokens)
+        toks[:, S:].zero_()
+        last.fill_(S - 1)
+
+    def _capture(self, params, tokens, Sb):
+        toks = tokens.new_zeros(1, Sb)
+        last = torch.empty(1, dtype=torch.int64, device=tokens.device)
+        self._fill(toks, last, tokens)
+
+        def step():
+            return self.step(params, {"tokens": toks}, last)
+
+        out = _run_on(self._side, step)
+        self._buckets[Sb] = (*_capture(step, self._side, self._pool), toks, last)
+        return out
 
 
 class ServeEngine:
@@ -212,13 +346,15 @@ class ServeEngine:
         ctx = ShardCtx(attention_impl=tuning.attention_impl,
                        ssm_impl=tuning.ssm_impl,
                        moe_row_dispatch=tuning.moe_row_dispatch)
-        self._prefill = make_prefill_step(cfg, ctx)
-        # the engine calls ``_decode``, which a wrapper may replace; ``_graph``
-        # keeps the runner, whose replays the engine counts
+        schema = cache_schema(cfg, slots, max_len, enc_len=cfg.enc_len)
+        # the engine calls ``_prefill`` and ``_decode``, which a wrapper may
+        # replace; ``_prefill_graphs`` and ``_graph`` keep the runners,
+        # whose replays the engine counts
+        self._prefill_graphs = PrefillGraphs(make_prefill_step(cfg, ctx),
+                                             pads_safely(cfg, schema))
+        self._prefill = self._prefill_graphs
         self._graph = DecodeGraph(make_serve_step(cfg, ctx))
         self._decode = self._graph
-
-        schema = cache_schema(cfg, slots, max_len, enc_len=cfg.enc_len)
         self.cache = map_schema(
             lambda ps: torch.zeros(ps.shape, dtype=ps.dtype or self.dtype,
                                    device=self.device),
@@ -261,14 +397,17 @@ class ServeEngine:
             t0 = time.perf_counter()
             if on:
                 tr.open("serve.prefill.enqueue", t0)
+            replays = self._prefill_graphs.replays
             last_logits, cache1 = self._prefill(self.params, batch)
+            replayed = self._prefill_graphs.replays - replays
+            self.stats.prefill_graph_replays += replayed
             if on:
                 tr.open("serve.write_slot")
             self._write_slot(slot, cache1, prompt.shape[1])
             if on:
                 tr.close()
             if on:
-                tr.then("serve.prefill.wait")
+                tr.then("serve.prefill.wait", graph=replayed)
             self._next_tok[slot] = int(torch.argmax(last_logits[0, : self.cfg.vocab]))
             t2 = time.perf_counter()
             self.stats.prefill_s += t2 - t0
@@ -282,14 +421,15 @@ class ServeEngine:
 
     def _write_slot(self, slot: int, cache1, seq_len: int) -> None:
         """Copy a single-sequence (B=1) prefill cache into the pool lane:
-        sequence leaves up to ``seq_len`` with the rest of the lane zeroed,
-        state leaves (and the cross K/V) whole."""
+        sequence leaves' first ``seq_len`` rows (a padded prompt's cache
+        holds more) with the rest of the lane zeroed, state leaves (and the
+        cross K/V) whole."""
         for key, pool in self.cache.items():
             if key == "pos":
                 continue
             lane = pool[:, slot]                            # drop the B dim
             if key in SEQ_KEYS:
-                lane[:, :seq_len] = cache1[key][:, 0]
+                lane[:, :seq_len] = cache1[key][:, 0, :seq_len]
                 lane[:, seq_len:] = 0
             else:
                 lane.copy_(cache1[key][:, 0])

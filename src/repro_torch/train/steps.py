@@ -172,21 +172,27 @@ def _metric_keys(cfg: ArchConfig) -> List[str]:
 
 def make_prefill_step(cfg: ArchConfig, ctx: ShardCtx = NOSHARD, *,
                       tuning: Optional[CellTuning] = None) -> Callable:
-    """prefill(params, batch) -> (last-token logits (B, Vp), cache).
+    """prefill(params, batch, last=None) -> (last-token logits (B, Vp), cache).
 
     ``batch`` holds ``tokens`` and, for the encoder-decoder family,
     ``enc_embeds`` (B, enc_len, d), which ``backbone`` reads.  Only the
     last position goes through the vocab head: the logits are the same as
     the JAX step's ``logits[:, -1]`` without the (B, S, Vp) tensor it
-    builds first.  With ``tuning``, float32 parameters are cast to
+    builds first.  ``last``, a (B,) int64 tensor on the tokens' device,
+    names each row's last real position instead (a prompt padded at its
+    end).  With ``tuning``, float32 parameters are cast to
     ``tuning.compute_dtype`` inside the step, as the JAX step casts them;
     without it they are used as they come."""
 
-    def prefill_step(params, batch):
+    def prefill_step(params, batch, last=None):
         with _no_autograd(params):
             p = _compute_params(params, tuning)
             h, cache, _ = backbone(p, cfg, batch, ctx=ctx, mode=PREFILL)
-            return head(p, cfg, h[:, -1], ctx), cache
+            if last is None:
+                h = h[:, -1]
+            else:
+                h = h[torch.arange(h.shape[0], device=h.device), last]
+            return head(p, cfg, h, ctx), cache
 
     return prefill_step
 

@@ -651,6 +651,145 @@ def test_a_failing_capture_raises(card):
     assert "graph: False replays: 0" in out.stdout, out.stdout
 
 
+# --------------------------------------------------------------------------
+# the B=1 prefill replayed as CUDA graphs at 128-token length buckets
+# --------------------------------------------------------------------------
+
+# (tick, prompt length, max new tokens): lengths on both sides of bucket
+# edges (128, 256), one at the cap (2,048) and one past it (2,049: eager)
+PREFILL_REQUESTS = ((0, 5, 4), (0, 127, 5), (1, 128, 4), (1, 129, 6), (3, 300, 5),
+                    (4, 2048, 3), (5, 2049, 3), (6, 120, 4), (6, 250, 3))
+
+
+@pytest.mark.parametrize("name", ["qwen2-1.5b", "granite-moe-3b-a800m"])
+def test_prefill_graphs_give_the_eager_engines_tokens(card, name):
+    """The dense and the MoE twin in float32 on 3 slots, staggered
+    admissions across bucket edges and past the cap: the engine that pads
+    and replays its prefill generates the tokens of one that prefills each
+    prompt eagerly at its own length.  It captures each bucket it meets
+    once (128, 256, 384, 2,048), replays every later prompt of a bucket,
+    and prefills the prompt past the cap eagerly."""
+    from repro_torch.serve import Request, ServeEngine
+    from repro_torch.serve.engine import PREFILL_GRAPH_MAX, prefill_bucket
+
+    cfg, params = _graph_twin(name, card)
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, cfg.vocab, size=n) for _, n, _ in PREFILL_REQUESTS]
+    out = {}
+    for kind in ("graph", "eager"):
+        engine = ServeEngine(cfg, params, slots=3, max_len=2064)
+        if kind == "eager":
+            engine._prefill = engine._prefill_graphs.step
+        reqs = [Request(i, p, max_new_tokens=m)
+                for i, (p, (_, _, m)) in enumerate(zip(prompts, PREFILL_REQUESTS))]
+        for tick in range(100):
+            for r, (t, _, _) in zip(reqs, PREFILL_REQUESTS):
+                if t == tick:
+                    engine.submit(r)
+            engine.tick()
+            if tick > PREFILL_REQUESTS[-1][0] and all(r.done for r in reqs):
+                break
+        out[kind] = ([r.generated for r in reqs], engine)
+    assert out["graph"][0] == out["eager"][0]
+    assert all(len(g) == m for g, (_, _, m) in zip(out["graph"][0], PREFILL_REQUESTS))
+    graphed = [prefill_bucket(n) for _, n, _ in PREFILL_REQUESTS
+               if prefill_bucket(n) <= PREFILL_GRAPH_MAX]
+    runner = out["graph"][1]._prefill_graphs
+    assert sorted(runner._buckets) == sorted(set(graphed)) == [128, 256, 384, 2048]
+    assert out["graph"][1].stats.prefill_graph_replays == len(graphed) - len(set(graphed)) == 4
+    assert out["eager"][1].stats.prefill_graph_replays == 0
+
+
+def test_a_prefill_bucket_is_captured_once_then_replayed(card):
+    """Three prompts of one bucket through the granite twin's runner in
+    bf16: the first runs eagerly and captures, the others replay.  A
+    replay of the first prompt gives the first call's logits and K/V rows
+    bit for bit, and each call counts the flash kernel once per layer."""
+    from repro_torch.models.config import CellTuning
+    from repro_torch.serve import ServeEngine
+
+    cfg, params = _graph_twin("granite-moe-3b-a800m", card)
+    engine = ServeEngine(cfg, params, slots=2, max_len=160,
+                         tuning=CellTuning(compute_dtype="bfloat16"))
+    runner = engine._prefill_graphs
+    rng = np.random.default_rng(7)
+    first, other = (torch.as_tensor(rng.integers(0, cfg.vocab, size=(1, n)), device=card)
+                    for n in (100, 128))
+    reset_launches()
+    logits, cache = runner(engine.params, {"tokens": first})
+    logits, cache = logits.clone(), {k: v[:, :, :100].clone() for k, v in cache.items()
+                                     if k != "pos"}
+    assert list(runner._buckets) == [128] and runner.replays == 0
+    runner(engine.params, {"tokens": other})
+    again, cache2 = runner(engine.params, {"tokens": first})
+    torch.cuda.synchronize()
+    assert list(runner._buckets) == [128] and runner.replays == 2
+    assert LAUNCHES["flash_attention"] == 3 * cfg.n_layers
+    assert torch.equal(again, logits)
+    for key, rows in cache.items():
+        assert torch.equal(cache2[key][:, :, :100], rows), key
+    with pytest.raises(RuntimeError, match="captured on other"):
+        runner(dict(engine.params), {"tokens": first})
+
+
+def _pool_bytes(pool) -> int:
+    """Bytes the card's allocator holds in the graph memory pool ``pool``."""
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) == tuple(pool))
+
+
+def test_prefill_buckets_share_one_memory_pool(card):
+    """A MoE twin wide enough that a prefill's work buffers dominate its
+    outputs: capturing the buckets 512, 384, 256 and 128 takes no more of
+    the card than capturing 512 alone, plus the smaller buckets' outputs
+    (which stay live) and 2 MiB of segment rounding a bucket."""
+    import dataclasses
+
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.models.schema import build_schema
+    from repro_torch.models.sharding import init_from_schema
+    from repro_torch.models.testing import reduced
+    from repro_torch.serve import ServeEngine
+
+    cfg = dataclasses.replace(reduced(ARCHS["granite-moe-3b-a800m"]), d_model=512, d_ff=1024)
+    params = init_from_schema(0, build_schema(cfg), torch.float32, card)
+    rng = np.random.default_rng(8)
+    held, outputs = {}, 0
+    for buckets in ([512], [512, 384, 256, 128]):
+        engine = ServeEngine(cfg, params, slots=1, max_len=520)
+        runner = engine._prefill_graphs
+        for Sb in buckets:
+            tokens = torch.as_tensor(rng.integers(0, cfg.vocab, size=(1, Sb - 3)), device=card)
+            runner(engine.params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        assert sorted(runner._buckets) == sorted(buckets)
+        held[len(buckets)] = _pool_bytes(runner._pool)
+        if len(buckets) > 1:
+            outputs = sum(t.nbytes for Sb in buckets[1:]
+                          for t in [runner._buckets[Sb][1][0], *runner._buckets[Sb][1][1].values()])
+    assert held[1] > 16 * 2 ** 20, held
+    assert held[4] <= held[1] + outputs + 3 * 2 * 2 ** 20, (held, outputs)
+
+
+@pytest.mark.parametrize("name", ["granite-4.0-h-small", "zamba2-1.2b", "falcon-mamba-7b",
+                                  "whisper-large-v3"])
+def test_engines_with_state_or_cross_lanes_never_replay_a_prefill(card, name):
+    """The hybrid-MoE (granite-4.0-h), hybrid, SSM and encoder-decoder
+    twins on the card: their caches hold state lanes or cross K/V, so
+    every admission prefills eagerly and no bucket is captured."""
+    from repro_torch.serve import Request, ServeEngine
+
+    cfg, params = _graph_twin(name, card)
+    engine = ServeEngine(cfg, params, slots=2, max_len=40)
+    rng = np.random.default_rng(9)
+    for i, n in enumerate((5, 13, 9)):
+        engine.submit(Request(i, rng.integers(0, cfg.vocab, size=n), max_new_tokens=4))
+    stats = engine.run_until_drained()
+    assert stats.finished == 3 and stats.decode_graph_replays > 0
+    assert not engine._prefill_graphs.pads
+    assert stats.prefill_graph_replays == 0 and engine._prefill_graphs._buckets == {}
+
+
 def _plan_card_and_cpu(problem, cfg_factory):
     from repro_torch.core.scheduler import GreenScheduler
 

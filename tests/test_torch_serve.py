@@ -277,3 +277,165 @@ def test_decode_runner_on_dtensor_parameters_is_the_eager_step():
             logits, out = runner(params, cache, toks)
             assert torch.equal(logits, toks.float()) and out is cache
     assert len(calls) == 3 and runner._cuda_graph is None and runner.replays == 0
+
+
+# --------------------------------------------------------------------------
+# the B=1 prefill padded to a length bucket (replayed as a graph on a card)
+# --------------------------------------------------------------------------
+
+def _reduced_arch(name):
+    """The reduced twin of a registry architecture, or of granite-4.0-h-small
+    (four layers, MAMM)."""
+    import dataclasses
+
+    from repro_torch.configs.granite_4_0_h_small import ARCH as GRANITE_4_H
+
+    if name == "granite-4.0-h-small":
+        return reduced(dataclasses.replace(GRANITE_4_H, n_layers=4, layer_pattern="MAMM"))
+    return reduced(ARCHS[name])
+
+
+def _prefill_twin(name):
+    """A reduced twin of ``name`` on the CPU: seeded float32 weights with
+    attention rescaled to its contracted width."""
+    from repro_torch.launch.train import rescale_attention
+    from repro_torch.models.schema import build_schema
+    from repro_torch.models.sharding import init_from_schema
+
+    cfg = _reduced_arch(name)
+    params = init_from_schema(0, build_schema(cfg), torch.float32, "cpu")
+    rescale_attention(params)
+    return cfg, params
+
+
+@pytest.mark.parametrize("S", [1, 127, 128, 129, 300])
+@pytest.mark.parametrize("name", ["qwen2-1.5b", "granite-moe-3b-a800m"])
+def test_padded_prefill_with_last_equals_the_prompt_alone(name, S):
+    """A prompt padded at its end to its bucket, read at ``last`` = S - 1,
+    gives the unpadded prefill's first-token logits (float32, within 1e-5
+    of their magnitude) and its K/V rows ``[:S]`` (within 1e-5 of theirs),
+    for the dense and the dropless MoE twin."""
+    from repro_torch.models.ops import ShardCtx
+    from repro_torch.serve.engine import prefill_bucket
+    from repro_torch.train.steps import make_prefill_step
+
+    cfg, params = _prefill_twin(name)
+    step = make_prefill_step(cfg, ShardCtx())
+    prompt = torch.as_tensor(_prompts(S, [S], cfg.vocab)[0], dtype=torch.int64)[None]
+    Sb = prefill_bucket(S)
+    padded = torch.zeros(1, Sb, dtype=torch.int64)
+    padded[:, :S] = prompt
+    logits, cache = step(params, {"tokens": prompt})
+    plogits, pcache = step(params, {"tokens": padded}, torch.tensor([S - 1]))
+    assert pcache["k"].shape[2] == Sb and int(pcache["pos"]) == Sb
+    scale = float(logits.abs().max())
+    torch.testing.assert_close(plogits, logits, atol=1e-5 * scale, rtol=0)
+    for key in ("k", "v"):
+        assert cache[key].shape[2] == S
+        torch.testing.assert_close(pcache[key][:, :, :S], cache[key],
+                                   atol=1e-5 * float(cache[key].abs().max()), rtol=0)
+
+
+@pytest.mark.parametrize("S,Sb", [(1, 128), (127, 128), (128, 128), (129, 256),
+                                  (300, 384), (1920, 1920), (2047, 2048),
+                                  (2048, 2048), (2049, 2176), (3968, 3968)])
+def test_prefill_bucket_rule(S, Sb):
+    """A prompt pads to the next multiple of 128 tokens, and is replayed
+    only where that length is at most 2,048."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.serve.engine import (PREFILL_BUCKET, PREFILL_GRAPH_MAX,
+                                          PrefillGraphs, prefill_bucket)
+
+    assert (PREFILL_BUCKET, PREFILL_GRAPH_MAX) == (128, 2048)
+    assert prefill_bucket(S) == Sb
+    with FakeTensorMode():
+        on_card = {"w": torch.empty(2, device="cuda")}
+    assert PrefillGraphs(None, pads=True).graphed(on_card, S) == (Sb <= 2048)
+    assert not PrefillGraphs(None, pads=False).graphed(on_card, S)
+
+
+@pytest.mark.parametrize("name,where,graphed", [
+    ("qwen2-1.5b", "cuda", True),
+    ("granite-moe-3b-a800m", "cuda", True),
+    ("granite-moe-3b-a800m/capacity", "cuda", False),
+    ("falcon-mamba-7b", "cuda", False),
+    ("zamba2-1.2b", "cuda", False),
+    ("granite-4.0-h-small", "cuda", False),
+    ("whisper-large-v3", "cuda", False),
+    ("qwen2-1.5b", "cpu", False),
+    ("granite-moe-3b-a800m", "cpu", False),
+    ("qwen2-1.5b", "dtensor", False),
+])
+def test_prefill_graph_family_rule(name, where, graphed):
+    """Which engines replay their prefill: those whose cache holds only K/V
+    (the dense and the MoE decoders) with plain parameters on a CUDA
+    device.  The SSM, hybrid, hybrid-MoE and encoder-decoder stacks, whose
+    caches hold state lanes or cross K/V, and any model on the CPU or on a
+    mesh's DTensors, prefill eagerly; so does a MoE whose capacity can drop
+    tokens (the registry's granite, capacity factor 1.25 over 48 padded
+    experts), since the padded pool's capacity would keep tokens the
+    prompt alone drops."""
+    import dataclasses
+
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from repro_torch.launch.mesh import fake_world, make_mesh_from_shape
+    from repro_torch.models.model import cache_schema
+    from repro_torch.serve.engine import PrefillGraphs, pads_safely
+
+    arch = name.split("/")[0]
+    cfg = _reduced_arch(arch)
+    if name.endswith("/capacity"):
+        cfg = dataclasses.replace(cfg, moe=ARCHS[arch].moe)
+        assert cfg.moe.capacity_factor * cfg.moe.top_k < cfg.moe.n_experts_padded
+    runner = PrefillGraphs(None, pads_safely(cfg, cache_schema(cfg, 2, 64, cfg.enc_len)))
+    if where == "cuda":
+        with FakeTensorMode():
+            param = torch.empty(2, device="cuda")
+        assert runner.graphed({"w": param}, 100) == graphed
+    elif where == "cpu":
+        engine = ServeEngine(cfg, _prefill_twin(arch)[1], slots=2, max_len=64, device="cpu")
+        assert engine._prefill_graphs.pads
+        assert engine._prefill_graphs.graphed(engine.params, 100) == graphed
+    else:
+        with fake_world(1):
+            mesh = make_mesh_from_shape((1,), ("data",), "cpu")
+            param = DTensor.from_local(torch.ones(4, 2), mesh, (Replicate(),))
+            assert runner.pads and runner.graphed({"w": param}, 100) == graphed
+
+
+@pytest.mark.parametrize("name", ["qwen2-1.5b", "granite-moe-3b-a800m"])
+def test_cpu_engine_prefills_eagerly(name):
+    """On the CPU the engine's prefill runner is the eager step: the same
+    tokens and counters as an engine that calls the step itself, no
+    bucket captured, no replay, and every traced admission marked
+    ``graph`` 0."""
+    from repro_torch.obs.trace import TRACER
+
+    cfg, params = _prefill_twin(name)
+    prompts = _prompts(17, [9, 130, 6, 40], cfg.vocab)
+    engines = [ServeEngine(cfg, params, slots=2, max_len=160, device="cpu")
+               for _ in range(2)]
+    engines[1]._prefill = engines[1]._prefill_graphs.step
+    outs = []
+    TRACER.enabled = True
+    TRACER.clear()
+    try:
+        for engine in engines:
+            reqs = [Request(i, p, max_new_tokens=5) for i, p in enumerate(prompts)]
+            for r in reqs:
+                engine.submit(r)
+            stats = engine.run_until_drained()
+            outs.append(([r.generated for r in reqs],
+                         tuple(getattr(stats, c) for c in COUNTERS)))
+        admits = TRACER.by_name("serve.prefill.enqueue")
+    finally:
+        TRACER.enabled = False
+        TRACER.clear()
+    assert outs[0] == outs[1] and outs[0][1][0] == len(prompts)
+    runner = engines[0]._prefill_graphs
+    assert runner._buckets == {} and runner.replays == 0
+    assert engines[0].stats.prefill_graph_replays == 0
+    assert len(admits) == 2 * len(prompts) and all(s.attrs["graph"] == 0 for s in admits)
